@@ -1,8 +1,8 @@
 """Scaling benchmark: throughput vs device count on a mesh.
 
-On real multi-chip hardware this measures weak/strong scaling of the
-distributed RK4 step (the BASELINE.md >70% weak-scaling target). On a
-single-chip or CPU environment it still runs — with virtual devices
+On several accelerators this measures weak/strong scaling of the
+distributed RK4 step (the BASELINE.json >70% weak-scaling target). On a
+single-device or CPU environment it still runs — with virtual devices
 (--force-host N) it validates the distributed path end-to-end and measures
 the COMMUNICATION OVERHEAD of the slab transposes relative to the
 single-device step (virtual devices share one socket, so "scaling" numbers
@@ -32,21 +32,14 @@ def main():
     ap.add_argument("--mode", choices=["weak", "strong"], default="weak")
     ap.add_argument("--force-host", type=int, default=0,
                     help="use N virtual CPU devices (validation mode)")
-    ap.add_argument("--fft-impl", default="xla",
-                    choices=["xla", "pallas", "overlap"],
-                    help="distributed-FFT implementation for the sharded "
-                         "runs (parallel/model.py:_fft_pair)")
     ap.add_argument("--decomp", default="slab",
                     choices=["slab", "xpencil", "pencil"],
                     help="domain decomposition: slab (1-D row mesh), "
                          "xpencil (1-D mesh, column-sharded spectral "
-                         "state — half the all_to_all traffic; any "
-                         "fft-impl), or true 2-D pencil "
-                         "(parallel/pencil.py; each n is factored into "
-                         "the squarest PxQ mesh, xla fft-impl only)")
+                         "state — half the all_to_all traffic), or true "
+                         "2-D pencil (parallel/pencil.py; each n is "
+                         "factored into the squarest PxQ mesh)")
     args = ap.parse_args()
-    if args.decomp == "pencil" and args.fft_impl != "xla":
-        ap.error("--decomp pencil supports --fft-impl xla only")
 
     if args.force_host:
         os.environ["JAX_PLATFORMS"] = "cpu"
@@ -55,15 +48,16 @@ def main():
             f"{flags} --xla_force_host_platform_device_count="
             f"{args.force_host}").strip()
 
+    from xlab_fftbarotropic.utils.compile_cache import (
+        enable_compile_cache)
+    enable_compile_cache()
     import jax
-    if args.force_host:
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from xlab_fftbarotropic_tpu.config import ModelConfig
-    from xlab_fftbarotropic_tpu.ic import makefields
-    from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
-    from xlab_fftbarotropic_tpu.parallel import (
+    from xlab_fftbarotropic.config import ModelConfig
+    from xlab_fftbarotropic.ic import makefields
+    from xlab_fftbarotropic.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic.parallel import (
         ShardedBarotropicModel, make_mesh)
 
     def pencil_shape(n):
@@ -85,7 +79,7 @@ def main():
             z = model.init_state(vort0)
             src = jnp.zeros(cfg.grid_shape, jnp.float32)
         elif args.decomp == "pencil":
-            from xlab_fftbarotropic_tpu.parallel import pencil
+            from xlab_fftbarotropic.parallel import pencil
             shape = pencil_shape(n)
             if nx % shape[1]:
                 continue
@@ -96,7 +90,6 @@ def main():
             src = model.zero_source()
         else:
             model = ShardedBarotropicModel.build(cfg, make_mesh(devices[:n]),
-                                                 fft_impl=args.fft_impl,
                                                  decomp=args.decomp)
             z = model.init_state(vort0)
             src = model.zero_source()

@@ -5,6 +5,6 @@ set -e
 cd "$(dirname "$0")"
 NX=${NX:-256}; STEPS=${STEPS:-300}; REC=${REC:-100}
 export PYTHONPATH="${PYTHONPATH:+$PYTHONPATH:}$(cd ../.. && pwd)"
-python -m xlab_fftbarotropic_tpu.cli.makefield gaussian -I input --nx $NX --ny $NX
-python -m xlab_fftbarotropic_tpu.cli.run -I input -O output \
+python -m xlab_fftbarotropic.cli.makefield gaussian -I input --nx $NX --ny $NX
+python -m xlab_fftbarotropic.cli.run -I input -O output \
     --nx $NX --ny $NX --total-steps $STEPS --record-step $REC

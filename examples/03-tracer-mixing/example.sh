@@ -10,17 +10,17 @@ cd "$(dirname "$0")"
 NX=${NX:-128}; STEPS=${STEPS:-300}; REC=${REC:-100}
 export PYTHONPATH="${PYTHONPATH:+$PYTHONPATH:}$(cd ../.. && pwd)"
 
-python -m xlab_fftbarotropic_tpu.cli.makefield kuo2004 -I input --nx $NX --ny $NX
-python -m xlab_fftbarotropic_tpu.cli.run -m tracer --tracer-ic gaussian \
+python -m xlab_fftbarotropic.cli.makefield kuo2004 -I input --nx $NX --ny $NX
+python -m xlab_fftbarotropic.cli.run -m tracer --tracer-ic gaussian \
     --tracer-kappa 0 -I input -O output \
     --nx $NX --ny $NX --total-steps $STEPS --record-step $REC
 
 # Nakamura kappa_eff/kappa profiles of the ADVECTED TRACER records
 ls -v output | grep '^q_step' | awk '{print "output/" $1}' | \
-    python -m xlab_fftbarotropic_tpu.cli.diagnose --nx $NX --ny $NX \
+    python -m xlab_fftbarotropic.cli.diagnose --nx $NX --ny $NX \
         -O output -d eddy-diffusivity
 
 # energy/enstrophy spectra of the flow at the same record steps
 ls -v output | grep '^vort_step' | awk '{print "output/" $1}' | \
-    python -m xlab_fftbarotropic_tpu.cli.diagnose --nx $NX --ny $NX \
+    python -m xlab_fftbarotropic.cli.diagnose --nx $NX --ny $NX \
         -O output -d spectrum

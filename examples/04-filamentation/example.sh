@@ -10,9 +10,9 @@ cd "$(dirname "$0")"
 NX=${NX:-256}; STEPS=${STEPS:-300}; REC=${REC:-100}
 export PYTHONPATH="${PYTHONPATH:+$PYTHONPATH:}$(cd ../.. && pwd)"
 
-python -m xlab_fftbarotropic_tpu.cli.makefield const-vortex -I input \
+python -m xlab_fftbarotropic.cli.makefield const-vortex -I input \
     --nx $NX --ny $NX
-python -m xlab_fftbarotropic_tpu.cli.run -I input -O output \
+python -m xlab_fftbarotropic.cli.run -I input -O output \
     --nx $NX --ny $NX --total-steps $STEPS --record-step $REC
 
 # Rozoff et al. 2006 filamentation time + Okubo-Weiss partition on every
@@ -20,5 +20,5 @@ python -m xlab_fftbarotropic_tpu.cli.run -I input -O output \
 # Nakamura kappa_eff/kappa profiles with vorticity as the mixed tracer
 # (for a run with a REAL passive tracer see examples/03-tracer-mixing).
 ls -v output | grep '^vort_step' | awk '{print "output/" $1}' | \
-    python -m xlab_fftbarotropic_tpu.cli.diagnose --nx $NX --ny $NX \
+    python -m xlab_fftbarotropic.cli.diagnose --nx $NX --ny $NX \
         -O output -d filamentation -d okubo-weiss -d eddy-diffusivity

@@ -11,20 +11,20 @@ cd "$(dirname "$0")"
 NX=${NX:-256}; STEPS=${STEPS:-300}; REC=${REC:-100}
 export PYTHONPATH="${PYTHONPATH:+$PYTHONPATH:}$(cd ../.. && pwd)"
 
-python -m xlab_fftbarotropic_tpu.cli.makefield elliptic-vortex -I input \
+python -m xlab_fftbarotropic.cli.makefield elliptic-vortex -I input \
     --nx $NX --ny $NX
 
 # producer/consumer pair over a named FIFO, exactly the reference's
 # test/02-test_invert_pressure/example.sh:10-13 topology
 rm -f vort_src_fifo; mkfifo vort_src_fifo
-python -m xlab_fftbarotropic_tpu.cli.vort_src_input \
+python -m xlab_fftbarotropic.cli.vort_src_input \
     --nx $NX --ny $NX --total-steps $STEPS > vort_src_fifo &
 PROD=$!
-python -m xlab_fftbarotropic_tpu.cli.run -I input -O output \
+python -m xlab_fftbarotropic.cli.run -I input -O output \
     --nx $NX --ny $NX --total-steps $STEPS --record-step $REC -f vort_src_fifo
 wait $PROD
 
 # deformation factor D = sqrt(S1^2+S2^2)/|zeta| per recorded state
 ls -v output | grep '^vort_step' | awk '{print "output/" $1}' | \
-    python -m xlab_fftbarotropic_tpu.cli.diagnose --nx $NX --ny $NX \
+    python -m xlab_fftbarotropic.cli.diagnose --nx $NX --ny $NX \
         -O output -d deformation

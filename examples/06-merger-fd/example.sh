@@ -14,11 +14,11 @@ cd "$(dirname "$0")"
 NX=${NX:-256}; STEPS=${STEPS:-300}; REC=${REC:-100}
 export PYTHONPATH="${PYTHONPATH:+$PYTHONPATH:}$(cd ../.. && pwd)"
 
-python -m xlab_fftbarotropic_tpu.cli.makefield kuo2004 -I input --nx $NX --ny $NX
-python -m xlab_fftbarotropic_tpu.cli.run -m fd -I input -O output-fd \
+python -m xlab_fftbarotropic.cli.makefield kuo2004 -I input --nx $NX --ny $NX
+python -m xlab_fftbarotropic.cli.run -m fd -I input -O output-fd \
     --nx $NX --ny $NX --total-steps $STEPS --record-step $REC \
     --manifest log-fd
-python -m xlab_fftbarotropic_tpu.cli.run -I input -O output-spectral \
+python -m xlab_fftbarotropic.cli.run -I input -O output-spectral \
     --nx $NX --ny $NX --total-steps $STEPS --record-step $REC \
     --manifest log-spectral
 

@@ -12,8 +12,8 @@ cd "$(dirname "$0")"
 NX=${NX:-128}; STEPS=${STEPS:-300}; REC=${REC:-100}; M=${M:-4}
 export PYTHONPATH="${PYTHONPATH:+$PYTHONPATH:}$(cd ../.. && pwd)"
 
-python -m xlab_fftbarotropic_tpu.cli.makefield kuo2004 -I input --nx $NX --ny $NX
-python -m xlab_fftbarotropic_tpu.cli.run -I input -O output \
+python -m xlab_fftbarotropic.cli.makefield kuo2004 -I input --nx $NX --ny $NX
+python -m xlab_fftbarotropic.cli.run -I input -O output \
     --nx $NX --ny $NX --total-steps $STEPS --record-step $REC \
     --ensemble $M --ensemble-amp 0.02 --ensemble-seed 7
 
@@ -22,9 +22,9 @@ for d in output/m*/; do
     m=$(basename "$d")
     grep "$m/psi_step" log | sed 's/psi/pres/' \
         | paste -d'@' <(grep "$m/psi_step" log) - | sed 's/@/=>/' \
-        | python -m xlab_fftbarotropic_tpu.cli.invert_pres --nx $NX --ny $NX
+        | python -m xlab_fftbarotropic.cli.invert_pres --nx $NX --ny $NX
     ls -v "$d" | grep pres_step | awk -v d="$d" '{print d $1}' \
-        | python -m xlab_fftbarotropic_tpu.cli.find_min --nx $NX --ny $NX -n 1 \
+        | python -m xlab_fftbarotropic.cli.find_min --nx $NX --ny $NX -n 1 \
         > "$d/pres_timeseries.txt"
 done
 

@@ -5,7 +5,7 @@ Twin experiment: integrate a "truth" gaussian vortex N steps to produce
 the observation (the final vorticity field), corrupt the truth into a
 first guess (wrong amplitude + a displaced spurious vortex), then recover
 the IC by adam descent on the final-state misfit with gradients from
-backprop through the checkpointed RK4 rollout (xlab_fftbarotropic_tpu/
+backprop through the checkpointed RK4 rollout (xlab_fftbarotropic/
 adjoint.py). No reference counterpart — the C++ binaries are
 forward-only.
 
@@ -17,19 +17,20 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
-from xlab_fftbarotropic_tpu.cli import _platform  # noqa: E402
+from xlab_fftbarotropic.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache)
 
-_platform.apply_env_platform()
+enable_compile_cache()
 
 import numpy as np  # noqa: E402
 
 
 def main():
     import jax.numpy as jnp
-    from xlab_fftbarotropic_tpu import adjoint
-    from xlab_fftbarotropic_tpu.config import ModelConfig
-    from xlab_fftbarotropic_tpu.ic.makefields import gaussian
-    from xlab_fftbarotropic_tpu.io.fieldio import write_field
+    from xlab_fftbarotropic import adjoint
+    from xlab_fftbarotropic.config import ModelConfig
+    from xlab_fftbarotropic.ic.makefields import gaussian
+    from xlab_fftbarotropic.io.fieldio import write_field
 
     nx = int(os.environ.get("NX", "64"))
     n_steps = int(os.environ.get("STEPS", "20"))

@@ -13,12 +13,12 @@ NX=${NX:-128}; STEPS=${STEPS:-600}; REC=${REC:-100}; R=${R:-2e-4}
 export PYTHONPATH="${PYTHONPATH:+$PYTHONPATH:}$(cd ../.. && pwd)"
 
 mkdir -p out_free out_drag
-python -m xlab_fftbarotropic_tpu.cli.makefield kuo2004 -I input \
+python -m xlab_fftbarotropic.cli.makefield kuo2004 -I input \
     --nx $NX --ny $NX
-python -m xlab_fftbarotropic_tpu.cli.run -I input -O out_free \
+python -m xlab_fftbarotropic.cli.run -I input -O out_free \
     --nx $NX --ny $NX --total-steps $STEPS --record-step $REC \
     --manifest out_free/log
-python -m xlab_fftbarotropic_tpu.cli.run -I input -O out_drag \
+python -m xlab_fftbarotropic.cli.run -I input -O out_drag \
     --nx $NX --ny $NX --total-steps $STEPS --record-step $REC \
     --r-drag $R --manifest out_drag/log
 

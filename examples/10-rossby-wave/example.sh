@@ -22,7 +22,7 @@ z = (1e-3 * np.sin(2 * np.pi * x / lx)[:, None]
      * np.ones((1, nx))).astype("<f4")
 z.tofile("input/initial_vorticity.bin")
 PY
-python -m xlab_fftbarotropic_tpu.cli.run -I input -O out \
+python -m xlab_fftbarotropic.cli.run -I input -O out \
     --nx $NX --ny $NX --total-steps $STEPS --record-step $REC \
     --beta $BETA --manifest out/log
 

@@ -13,14 +13,14 @@ cd "$(dirname "$0")"
 NX=${NX:-128}; REC=${REC:-40}
 export PYTHONPATH="${PYTHONPATH:+$PYTHONPATH:}$(cd ../.. && pwd)"
 
-python -m xlab_fftbarotropic_tpu.cli.makefield gaussian -I input \
+python -m xlab_fftbarotropic.cli.makefield gaussian -I input \
     --nx $NX --ny $NX
 
 python - "$NX" <<'PY' > dt.txt
 import sys
 sys.path.insert(0, "../..")
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.models.shallow_water import max_stable_dt
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.models.shallow_water import max_stable_dt
 nx = int(sys.argv[1])
 dtg = max_stable_dt(ModelConfig(nx=nx, ny=nx))
 print(f"{0.9 * dtg:.6f} {4.5 * dtg:.6f}")
@@ -31,10 +31,10 @@ STEPS_RK=$((REC * 5)); STEPS_ETD=$REC
 mkdir -p out_rk4 out_etd
 # reference record semantics: records happen at the TOP of a step
 # (main.cpp loop), so total-steps must exceed the last record point
-python -m xlab_fftbarotropic_tpu.cli.run -I input -O out_rk4 -m sw \
+python -m xlab_fftbarotropic.cli.run -I input -O out_rk4 -m sw \
     --nx $NX --ny $NX --dt $DT_RK --total-steps $((STEPS_RK + 1)) \
     --record-step $STEPS_RK --manifest out_rk4/log
-python -m xlab_fftbarotropic_tpu.cli.run -I input -O out_etd -m sw \
+python -m xlab_fftbarotropic.cli.run -I input -O out_etd -m sw \
     --nx $NX --ny $NX --dt $DT_ETD --time-scheme etdrk4 \
     --total-steps $((STEPS_ETD + 1)) --record-step $STEPS_ETD \
     --manifest out_etd/log
@@ -67,7 +67,7 @@ print("OK: big-step ETDRK4 matches the explicit reference-scheme run")
 PY
 
 echo "# RK4 at the ETDRK4 step size blows up (expected):"
-if python -m xlab_fftbarotropic_tpu.cli.run -I input -O out_rk4 -m sw \
+if python -m xlab_fftbarotropic.cli.run -I input -O out_rk4 -m sw \
     --nx $NX --ny $NX --dt $DT_ETD --total-steps $STEPS_ETD \
     --record-step $STEPS_ETD --manifest /dev/null 2>&1 \
     | grep -q "blow-up\|NaN"; then

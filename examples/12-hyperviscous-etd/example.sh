@@ -16,7 +16,7 @@ cd "$(dirname "$0")"
 NX=${NX:-128}
 export PYTHONPATH="${PYTHONPATH:+$PYTHONPATH:}$(cd ../.. && pwd)"
 
-python -m xlab_fftbarotropic_tpu.cli.makefield gaussian -I input \
+python -m xlab_fftbarotropic.cli.makefield gaussian -I input \
     --nx $NX --ny $NX
 
 # nu4 chosen so the RK4 viscous bound sits at exactly 1 s for the
@@ -27,7 +27,7 @@ python -m xlab_fftbarotropic_tpu.cli.makefield gaussian -I input \
 NU4=$(python - "$NX" <<'PY'
 import sys
 sys.path.insert(0, "../..")
-from xlab_fftbarotropic_tpu.config import ModelConfig
+from xlab_fftbarotropic.config import ModelConfig
 import math
 cfg = ModelConfig(nx=int(sys.argv[1]), ny=int(sys.argv[1]))
 kc = math.ceil(cfg.nx / 3.0)
@@ -41,11 +41,11 @@ DT_RK=0.9; DT_ETD=6.0
 STEPS_RK=40; STEPS_ETD=6     # both reach t = 36 s
 
 mkdir -p out_rk4 out_etd
-python -m xlab_fftbarotropic_tpu.cli.run -I input -O out_rk4 \
+python -m xlab_fftbarotropic.cli.run -I input -O out_rk4 \
     --nx $NX --ny $NX --dt $DT_RK --nu4 $NU4 \
     --total-steps $((STEPS_RK + 1)) --record-step $STEPS_RK \
     --manifest out_rk4/log
-python -m xlab_fftbarotropic_tpu.cli.run -I input -O out_etd \
+python -m xlab_fftbarotropic.cli.run -I input -O out_etd \
     --nx $NX --ny $NX --dt $DT_ETD --nu4 $NU4 --time-scheme etdrk4 \
     --total-steps $((STEPS_ETD + 1)) --record-step $STEPS_ETD \
     --manifest out_etd/log
@@ -67,7 +67,7 @@ PY
 
 echo "# RK4 at the ETDRK4 step size blows up (expected; the unstable"
 echo "# mode amplifies ~2.6e3/step, so the NaN guard trips by step ~15):"
-if python -m xlab_fftbarotropic_tpu.cli.run -I input -O out_rk4 \
+if python -m xlab_fftbarotropic.cli.run -I input -O out_rk4 \
     --nx $NX --ny $NX --dt $DT_ETD --nu4 $NU4 \
     --total-steps 31 --record-step 5 \
     --manifest /dev/null 2>&1 | grep -qi "blow-up\|blowup\|NaN"; then

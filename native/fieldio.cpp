@@ -1,4 +1,4 @@
-// Native field I/O — the TPU framework's analogue of the reference's only
+// Native field I/O — this framework's analogue of the reference's only
 // shared library, lib/libfieldio.so (reference: src/fieldio.cpp:7-33,
 // Makefile:11,26-27). Same byte contract: raw headerless little-endian
 // float32, whole field, x-major/y-contiguous.

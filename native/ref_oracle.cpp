@@ -1,9 +1,9 @@
 // Independent C++ float32 oracle for the barotropic reference pipeline.
 //
-// Purpose (VERDICT r1 item 4): the repo's correctness chain bottoms out in
+// Purpose: the repo's correctness chain bottoms out in
 // oracle/reference_cpu.py, a numpy transcription of the reference
-// /root/reference/src/main.cpp. FFTW3f cannot be installed or vendored in
-// this offline environment (see BASELINE.md "FFTW build attempt"), so this
+// main.cpp. FFTW3f cannot be installed or vendored in an offline
+// environment, so this
 // program closes the loop a different way: a SECOND, fully independent
 // implementation — different language (C++17), different FFT (hand-written
 // iterative radix-2 Cooley-Tukey, single precision, no shared code or
@@ -16,7 +16,7 @@
 //   * circular dealias mask, kc=ceil(N/3) (fftwfop.cpp:56-68)
 //   * RK4 with per-stage dealiased tendencies (main.cpp:286-317)
 //   * record-before-update output contract vort_step_N.bin (main.cpp:266-282)
-// Agreement of this program with the numpy oracle and the TPU model on the
+// Agreement of this program with the numpy oracle and the JAX model on the
 // BASELINE config #1 trajectory (256^2 gaussian, 100 steps) is then evidence
 // that the numerics contract is implemented right, not merely transcribed
 // consistently (tests/test_c_oracle.py).

@@ -2,7 +2,7 @@
 
 Runs the barotropic core for --total-steps (default 10k) at --nx (default
 2048) in segments of 1000, printing one JSON line per segment with
-wall-clock and stability scalars (fetched as scalars — remote-device-safe).
+wall-clock and stability scalars (fetched as scalars).
 Usage: python scripts/soak.py [--nx 2048] [--total-steps 10000]
 """
 
@@ -24,16 +24,18 @@ def main():
     ap.add_argument("--ic", default="kuo2004",
                     choices=["kuo2004", "gaussian"],
                     help="kuo2004 (config #4) violates CFL at 4096^2 "
-                         "with the default dt (CLAUDE.md); use gaussian "
-                         "there")
+                         "with the default dt; use gaussian there")
     args = ap.parse_args()
 
+    from xlab_fftbarotropic.utils.compile_cache import (
+        enable_compile_cache)
+    enable_compile_cache()
     import jax
     import jax.numpy as jnp
 
-    from xlab_fftbarotropic_tpu.config import ModelConfig
-    from xlab_fftbarotropic_tpu.ic import makefields
-    from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic.config import ModelConfig
+    from xlab_fftbarotropic.ic import makefields
+    from xlab_fftbarotropic.models.barotropic import BarotropicModel
 
     cfg = ModelConfig(nx=args.nx, ny=args.nx)
     model = BarotropicModel.build(cfg)

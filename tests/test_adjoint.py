@@ -14,9 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from xlab_fftbarotropic_tpu import adjoint
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.ic.makefields import gaussian
+from xlab_fftbarotropic import adjoint
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.ic.makefields import gaussian
 
 
 def _cfg(nx=32, dt=3.0, nu=6.5):
@@ -136,8 +136,8 @@ def test_segmented_rollout_matches_unsegmented():
 def test_sharded_gradient_matches_single_device(decomp, mesh_shape):
     """Backprop through shard_map + distributed FFTs == single-device
     adjoint, for every decomposition (the collective transpose rules)."""
-    from xlab_fftbarotropic_tpu.parallel.model import make_mesh
-    from xlab_fftbarotropic_tpu.parallel import pencil
+    from xlab_fftbarotropic.parallel.model import make_mesh
+    from xlab_fftbarotropic.parallel import pencil
 
     cfg = _cfg()
     ic = _smooth_ic(cfg)
@@ -162,10 +162,26 @@ def test_sharded_gradient_matches_single_device(decomp, mesh_shape):
                                rtol=0, atol=1e-4 * scale)
 
 
+@pytest.mark.parametrize("decomp", ["slab", "xpencil", "pencil"])
+def test_p4_sharded_rollout_forward_matches_single(p4_mesh, decomp):
+    """The sharded rollout's forward pass on the four-device layout
+    equals the single-device rollout (fast tier; the gradient check
+    above is slow)."""
+    cfg = _cfg()
+    ic = _smooth_ic(cfg)
+    src = jnp.zeros(cfg.grid_shape, jnp.float32)
+    want = np.asarray(adjoint.make_rollout(cfg, 2)(ic, src))
+    roll = adjoint.make_sharded_rollout(cfg, 2, p4_mesh(decomp),
+                                        decomp=decomp)
+    got = np.asarray(roll(ic, src))
+    scale = float(np.max(np.abs(want)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+
+
 def test_assimilate_cli_end_to_end(tmp_path):
     """xfb-assimilate: target + corrupted guess -> recovered IC file."""
-    from xlab_fftbarotropic_tpu.cli import assimilate
-    from xlab_fftbarotropic_tpu.io.fieldio import read_field, write_field
+    from xlab_fftbarotropic.cli import assimilate
+    from xlab_fftbarotropic.io.fieldio import read_field, write_field
 
     cfg = _cfg()
     truth = np.asarray(0.1 * gaussian(cfg))

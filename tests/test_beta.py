@@ -4,7 +4,7 @@ diagnostic there).
 
 Implemented as the planetary-vorticity advection -beta*v folded into the
 advection product (-u*zx - v*(zy + beta)): zero extra transforms on every
-path, including the fused Pallas plane-stepper kernels. beta=0 (default)
+path. beta=0 (default)
 is a static trace-time branch, so every existing parity pin is untouched
 by construction.
 
@@ -13,8 +13,8 @@ Correctness anchors:
   its trajectory is the analytic westward-propagating Rossby wave
   A exp(-nu k1^2 t) sin(k1 x - omega t) with omega = -beta/k1 — a phase
   AND amplitude pin the RK4 solution must hit to integrator accuracy;
-* plane stepper / fused-KB / sharded / adjoint paths pinned against the
-  XLA core under beta;
+* sharded / adjoint paths pinned against the single-device core under
+  beta;
 * the FD/Arakawa core satisfies its own DISCRETE dispersion relation
   (centered-difference k_d = sin(k1 dx)/dx over the 5-point k_eff^2).
 """
@@ -24,13 +24,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.models import barotropic as bt
-from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
-from xlab_fftbarotropic_tpu.models import tracer as tr
-from xlab_fftbarotropic_tpu.ops import fft
-from xlab_fftbarotropic_tpu.ops import spectral as sp
-from xlab_fftbarotropic_tpu.ops.spectral import SpectralTables
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.models.barotropic import BarotropicModel
+from xlab_fftbarotropic.models import tracer as tr
+from xlab_fftbarotropic.ops import fft
+from xlab_fftbarotropic.ops import spectral as sp
+from xlab_fftbarotropic.ops.spectral import SpectralTables
 
 # exaggerated beta (Earth ~1.6e-11) so the phase moves visibly within a
 # few hundred steps on the 600 km reference domain
@@ -83,37 +82,6 @@ def test_rossby_wave_westward_only():
     assert got[0, 0] > 1e-5
 
 
-def test_plane_stepper_beta_matches_xla():
-    from xlab_fftbarotropic_tpu.ic import makefields
-    cfg = ModelConfig(nx=128, ny=128, beta=BETA)
-    v0 = makefields.kuo2004(cfg)
-    m_ref = BarotropicModel.build(cfg)
-    z_ref = m_ref.segment(m_ref.init_state(v0), m_ref.zero_source(), 10)
-    m_pl = BarotropicModel.build(cfg.replace(fft_backend="pallas"))
-    z_pl = m_pl.segment(m_pl.init_state(v0), m_pl.zero_source(), 10)
-    a = np.asarray(fft.inverse(z_ref, cfg.grid_shape))
-    b = np.asarray(fft.inverse(z_pl, cfg.grid_shape))
-    assert np.max(np.abs(a - b)) < 1e-6 * max(1.0, np.max(np.abs(a)))
-
-
-@pytest.mark.parametrize("mode", ["half", "full"])
-def test_fusekb_beta_bit_identical(mode, monkeypatch):
-    """The fused KB+advection kernels carry beta bit-identically to the
-    unfused plane pipeline."""
-    from xlab_fftbarotropic_tpu.ic import makefields
-    from xlab_fftbarotropic_tpu.ops import pallas_fft as pf
-
-    cfg = ModelConfig(nx=128, ny=128, beta=BETA, fft_backend="pallas")
-    v0 = makefields.kuo2004(cfg)
-    monkeypatch.setattr(pf, "FUSEKB", "0")
-    m0 = BarotropicModel.build(cfg)
-    z0 = m0.segment(m0.init_state(v0), m0.zero_source(), 5)
-    monkeypatch.setattr(pf, "FUSEKB", mode)
-    m1 = BarotropicModel.build(cfg)
-    z1 = m1.segment(m1.init_state(v0), m1.zero_source(), 5)
-    np.testing.assert_array_equal(np.asarray(z0), np.asarray(z1))
-
-
 def test_tracer_beta_flow_only():
     """Tracer family: beta enters the flow tendency as exactly -beta*v̂;
     the tracer equation is untouched at a fixed state."""
@@ -147,7 +115,7 @@ def test_fd_core_discrete_rossby_dispersion():
     omega_FD = -beta * k_d / k_eff^2 with k_d = sin(k1 dx)/dx (centered
     difference) and k_eff^2 = (2 - 2cos(k1 dx))/dx^2 (5-point
     Laplacian)."""
-    from xlab_fftbarotropic_tpu.models.fd_core import FDBarotropicModel
+    from xlab_fftbarotropic.models.fd_core import FDBarotropicModel
     cfg = ModelConfig(nx=64, ny=64, nu=0.0, dt=3.0, beta=BETA)
     m = FDBarotropicModel.build(cfg)
     amp = 1e-3
@@ -168,8 +136,8 @@ def test_fd_core_discrete_rossby_dispersion():
 
 
 def test_sharded_beta_matches_single_device():
-    from xlab_fftbarotropic_tpu.ic import makefields
-    from xlab_fftbarotropic_tpu.parallel import (ShardedBarotropicModel,
+    from xlab_fftbarotropic.ic import makefields
+    from xlab_fftbarotropic.parallel import (ShardedBarotropicModel,
                                                  make_mesh)
     cfg = ModelConfig(nx=64, ny=64, beta=BETA)
     mesh = make_mesh(jax.devices())
@@ -189,7 +157,7 @@ def test_adjoint_rollout_carries_beta():
     gradient of the advection-free mode is exp(-nu k1^2 T) (beta only
     rotates the phase; the projection onto the rotated analytic wave
     isolates the amplitude factor)."""
-    from xlab_fftbarotropic_tpu.adjoint import make_rollout
+    from xlab_fftbarotropic.adjoint import make_rollout
     cfg = ModelConfig(nx=32, ny=32, dt=3.0, beta=BETA)
     n = 50
     roll = make_rollout(cfg, n)
@@ -212,7 +180,7 @@ def test_adjoint_rollout_carries_beta():
 
 
 def test_sw_refuses_beta():
-    from xlab_fftbarotropic_tpu.models.shallow_water import ShallowWaterModel
+    from xlab_fftbarotropic.models.shallow_water import ShallowWaterModel
     cfg = ModelConfig(nx=32, ny=32, dt=0.1, beta=BETA)
     with pytest.raises(NotImplementedError):
         ShallowWaterModel.build(cfg)
@@ -220,7 +188,7 @@ def test_sw_refuses_beta():
 
 def test_cli_flag_roundtrip():
     import argparse
-    from xlab_fftbarotropic_tpu.config import (add_config_args,
+    from xlab_fftbarotropic.config import (add_config_args,
                                                config_from_args)
     p = add_config_args(argparse.ArgumentParser())
     cfg = config_from_args(p.parse_args(["--beta", "1.6e-11"]))

@@ -3,8 +3,7 @@
 code shared) vs the numpy oracle (oracle/reference_cpu.py) vs the JAX
 model, on BASELINE config #1 (256^2 gaussian, 100 RK4 steps).
 
-This is the VERDICT r1 item-4 closure: FFTW3f cannot be installed or
-vendored offline (recipe + failure recorded in BASELINE.md), so instead of
+FFTW3f cannot be installed or vendored offline, so instead of
 diffing the numpy transcription against the real FFTW binaries, we diff it
 against a second from-scratch implementation of the same written contract
 (SURVEY.md §5). Agreement of three independent codebases to float32
@@ -19,9 +18,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.ic import makefields
-from xlab_fftbarotropic_tpu.io.fieldio import read_field, write_field
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.ic import makefields
+from xlab_fftbarotropic.io.fieldio import read_field, write_field
 
 REPO = Path(__file__).resolve().parents[1]
 ORACLE = REPO / "native" / "ref_oracle.out"
@@ -69,7 +68,7 @@ def test_c_oracle_roundtrip_ic(c_run):
 def test_c_oracle_matches_numpy_oracle(c_run):
     """100-step trajectories of the two independent serial oracles agree
     to float32 round-off (measured 2.1e-7)."""
-    from xlab_fftbarotropic_tpu.oracle.reference_cpu import OracleBarotropic
+    from xlab_fftbarotropic.oracle.reference_cpu import OracleBarotropic
     cfg, vort0, out = c_run
     recorded = {}
     np_final = OracleBarotropic(cfg).run(
@@ -81,11 +80,11 @@ def test_c_oracle_matches_numpy_oracle(c_run):
 
 
 def test_c_oracle_matches_jax_model(c_run):
-    """The TPU-architecture model reproduces the C oracle trajectory
+    """The JAX model reproduces the C oracle trajectory
     (measured 2.1e-7 after 100 steps on the CPU backend)."""
     import jax.numpy as jnp  # noqa: F401
-    from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
-    from xlab_fftbarotropic_tpu.ops import fft
+    from xlab_fftbarotropic.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic.ops import fft
     cfg, vort0, out = c_run
     model = BarotropicModel.build(cfg)
     z = model.segment(model.init_state(vort0), model.zero_source(), 100)
@@ -103,12 +102,12 @@ def test_c_oracle_other_ics(tmp_path, icname):
     sharper gradients through the dealias mask and Laplacian inversion,
     so agreement here pins the contract under structured dynamics, not
     just a smooth blob. 128^2, 60 RK4 steps, C++ oracle vs numpy oracle
-    vs the JAX model (xla and pallas-interpret backends)."""
+    vs the JAX model (the jnp.fft and DFT-as-matmul backends)."""
     if not _build():
         pytest.skip("no C++ toolchain to build native/ref_oracle.out")
-    from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
-    from xlab_fftbarotropic_tpu.ops import fft
-    from xlab_fftbarotropic_tpu.oracle.reference_cpu import OracleBarotropic
+    from xlab_fftbarotropic.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic.ops import fft
+    from xlab_fftbarotropic.oracle.reference_cpu import OracleBarotropic
 
     cfg = ModelConfig(nx=128, ny=128, dt=3.0, total_steps=60,
                       record_step=60)
@@ -123,7 +122,7 @@ def test_c_oracle_other_ics(tmp_path, icname):
                          cfg.grid_shape)
     np_final = OracleBarotropic(cfg).run(vort0, 60)
     assert _rel(c_final, np_final) < 3e-6
-    for backend in ("xla", "pallas"):
+    for backend in ("xla", "mxu"):
         m = BarotropicModel.build(cfg.replace(fft_backend=backend))
         z = m.segment(m.init_state(vort0), m.zero_source(), 60)
         jx = np.asarray(fft.inverse(z, cfg.grid_shape))

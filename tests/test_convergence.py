@@ -31,9 +31,9 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
-from xlab_fftbarotropic_tpu.models.shallow_water import ShallowWaterModel
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.models.barotropic import BarotropicModel
+from xlab_fftbarotropic.models.shallow_water import ShallowWaterModel
 
 
 def test_barotropic_rk4_is_fourth_order_in_dt():

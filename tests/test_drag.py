@@ -11,24 +11,19 @@ Correctness anchors:
 * a single Fourier mode self-advects to zero (1-D field => J(psi,zeta)=0),
   so its exact trajectory is zeta0 * exp(-(nu*k^2 + r) t) — an analytic
   pin the RK4 solution must hit to integrator accuracy;
-* the fused Pallas plane stepper carries the drag by an exact fold into
-  its viscous table (lap := nu*lap - r, nu := 1), pinned against the XLA
-  path;
 * sharded (shard_map) and adjoint paths thread the same coefficient.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
-from xlab_fftbarotropic_tpu.models import barotropic as bt
-from xlab_fftbarotropic_tpu.models import shallow_water as sw
-from xlab_fftbarotropic_tpu.models import tracer as tr
-from xlab_fftbarotropic_tpu.ops import fft
-from xlab_fftbarotropic_tpu.ops.spectral import SpectralTables
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.models.barotropic import BarotropicModel
+from xlab_fftbarotropic.models import shallow_water as sw
+from xlab_fftbarotropic.models import tracer as tr
+from xlab_fftbarotropic.ops import fft
+from xlab_fftbarotropic.ops.spectral import SpectralTables
 
 
 R = 2e-3   # e-folding 500 s — visible decay over a few hundred steps
@@ -59,7 +54,7 @@ def test_single_mode_analytic_decay():
 def test_drag_strictly_damps_energy():
     """Same turbulent IC with and without drag: drag run must carry
     strictly less enstrophy after a burst of steps."""
-    from xlab_fftbarotropic_tpu.ic import makefields
+    from xlab_fftbarotropic.ic import makefields
     cfg0 = ModelConfig(nx=64, ny=64)
     cfg1 = cfg0.replace(r_drag=5e-3)
     v0 = makefields.kuo2004(cfg0)
@@ -71,26 +66,6 @@ def test_drag_strictly_damps_energy():
     s1 = m1.stats(z1)
     assert float(s1.enstrophy) < float(s0.enstrophy) * 0.9
     assert float(s1.energy) < float(s0.energy)
-
-
-def test_plane_stepper_drag_matches_xla():
-    """The lap := nu*lap - r fold on the fused plane stepper must follow
-    the explicit-term XLA path (the plane kernels are untouched)."""
-    from xlab_fftbarotropic_tpu.ic import makefields
-    cfg = ModelConfig(nx=128, ny=128, r_drag=R)
-    v0 = makefields.kuo2004(cfg)
-    m_ref = BarotropicModel.build(cfg)
-    z_ref = m_ref.segment(m_ref.init_state(v0), m_ref.zero_source(), 10)
-    old = bt.PLANE_STEPPER
-    bt.PLANE_STEPPER = True
-    try:
-        m_pl = BarotropicModel.build(cfg.replace(fft_backend="pallas"))
-        z_pl = m_pl.segment(m_pl.init_state(v0), m_pl.zero_source(), 10)
-    finally:
-        bt.PLANE_STEPPER = old
-    a = np.asarray(fft.inverse(z_ref, cfg.grid_shape))
-    b = np.asarray(fft.inverse(z_pl, cfg.grid_shape))
-    assert np.max(np.abs(a - b)) < 1e-6 * max(1.0, np.max(np.abs(a)))
 
 
 def test_sw_drag_tendency_exact():
@@ -147,7 +122,7 @@ def test_tracer_drag_flow_only():
 def test_fd_core_drag_decay():
     """FD/Arakawa core: with nu=0 a single mode decays as exp(-r t)
     (the Arakawa Jacobian of a 1-D field is identically zero)."""
-    from xlab_fftbarotropic_tpu.models.fd_core import FDBarotropicModel
+    from xlab_fftbarotropic.models.fd_core import FDBarotropicModel
     cfg = ModelConfig(nx=32, ny=32, nu=0.0, dt=3.0, r_drag=R)
     m = FDBarotropicModel.build(cfg)
     v0 = jnp.asarray(_single_mode_ic(cfg))
@@ -159,9 +134,9 @@ def test_fd_core_drag_decay():
 
 
 def test_sharded_drag_matches_single_device():
-    from xlab_fftbarotropic_tpu.parallel import (ShardedBarotropicModel,
+    from xlab_fftbarotropic.parallel import (ShardedBarotropicModel,
                                                  make_mesh)
-    from xlab_fftbarotropic_tpu.ic import makefields
+    from xlab_fftbarotropic.ic import makefields
     cfg = ModelConfig(nx=64, ny=64, r_drag=R)
     mesh = make_mesh(jax.devices())
     v0 = makefields.kuo2004(cfg)
@@ -177,7 +152,7 @@ def test_sharded_drag_matches_single_device():
 def test_adjoint_gradient_carries_drag():
     """d(final amplitude)/d(IC amplitude) of the advection-free mode is
     exactly exp(-lam*T): the rollout gradient must see the drag."""
-    from xlab_fftbarotropic_tpu.adjoint import make_rollout
+    from xlab_fftbarotropic.adjoint import make_rollout
     cfg = ModelConfig(nx=32, ny=32, dt=3.0, r_drag=R)
     n = 20
     roll = make_rollout(cfg, n)
@@ -195,7 +170,7 @@ def test_adjoint_gradient_carries_drag():
 
 def test_cli_flag_roundtrip():
     import argparse
-    from xlab_fftbarotropic_tpu.config import (add_config_args,
+    from xlab_fftbarotropic.config import (add_config_args,
                                                config_from_args)
     p = add_config_args(argparse.ArgumentParser())
     cfg = config_from_args(p.parse_args(["--r-drag", "0.004"]))

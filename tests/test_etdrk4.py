@@ -18,12 +18,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.ic import makefields
-from xlab_fftbarotropic_tpu.models import etdrk4 as etd
-from xlab_fftbarotropic_tpu.models.shallow_water import (
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.ic import makefields
+from xlab_fftbarotropic.models import etdrk4 as etd
+from xlab_fftbarotropic.models.shallow_water import (
     ShallowWaterModel, max_stable_dt)
-from xlab_fftbarotropic_tpu.ops.spectral import SpectralTables
+from xlab_fftbarotropic.ops.spectral import SpectralTables
 
 
 def _cfg(**kw):
@@ -75,7 +75,7 @@ def test_linear_matrix_matches_tendency():
     call)."""
     cfg = _cfg(r_drag=1e-4, nu4=1e2)
     t = SpectralTables.from_config(cfg)
-    from xlab_fftbarotropic_tpu.models import shallow_water as swm
+    from xlab_fftbarotropic.models import shallow_water as swm
     rng = np.random.default_rng(1)
     shape = cfg.spectral_shape
     s = swm.SWState(*(jnp.asarray(
@@ -174,57 +174,17 @@ def test_above_mask_modes_frozen():
     assert got == np.complex64(7.0 + 3.0j)
 
 
-def test_plane_path_matches_xla_path():
-    """The fused plane-stepper ETDRK4 (etdrk4_step_planes, interpret
-    mode on CPU) reproduces the XLA-path ETDRK4 trajectory to float32
-    round-off — the same differential gate as the RK4 plane stepper."""
-    cfg = ModelConfig(nx=128, ny=128)
-    dtb = 2 * max_stable_dt(cfg)         # above the RK4 bound
-    vort = jnp.asarray(makefields.gaussian(cfg.replace(nx=128, ny=128)))
-    m_x = ShallowWaterModel.build(cfg.replace(
-        dt=dtb, time_scheme="etdrk4", fft_backend="xla"))
-    m_p = ShallowWaterModel.build(cfg.replace(
-        dt=dtb, time_scheme="etdrk4", fft_backend="pallas"))
-    s0 = m_x.geostrophic_init(vort)
-    a = m_x.segment(s0, None, 5)
-    b = m_p.segment(s0, None, 5)
-    # float32 transform round-off, amplified ~5x over the 5-step
-    # geostrophic-adjustment transient (measured 6.7e-5 / 4.7e-4 /
-    # 9.2e-5; an RK4-at-dt/8 reference matches the XLA-ETD trajectory
-    # to the same 6e-5 class, so this is round-off, not scheme error)
-    assert _rel(b.zeta_hat, a.zeta_hat) < 3e-4
-    assert _rel(b.div_hat, a.div_hat) < 3e-3    # small-norm residual
-    assert _rel(b.eta_hat, a.eta_hat) < 3e-4
-
-
-def test_plane_path_carries_drag():
-    """r_drag rides the L tables on the ETD plane path (the RK4 plane
-    stepper must fall back for drag); pin against the XLA ETD path."""
-    cfg = ModelConfig(nx=128, ny=128, r_drag=1e-4)
-    dtb = 2 * max_stable_dt(cfg)
-    vort = jnp.asarray(makefields.gaussian(cfg))
-    m_x = ShallowWaterModel.build(cfg.replace(
-        dt=dtb, time_scheme="etdrk4", fft_backend="xla"))
-    m_p = ShallowWaterModel.build(cfg.replace(
-        dt=dtb, time_scheme="etdrk4", fft_backend="pallas"))
-    s0 = m_x.geostrophic_init(vort)
-    a = m_x.segment(s0, None, 5)
-    b = m_p.segment(s0, None, 5)
-    assert _rel(b.zeta_hat, a.zeta_hat) < 3e-4
-    assert _rel(b.eta_hat, a.eta_hat) < 3e-4
-
-
 @pytest.mark.parametrize("decomp", ["slab", "xpencil", "pencil"])
 def test_sharded_etdrk4_matches_single(decomp):
     """Sharded ETDRK4 (slab, padded-xpencil, and 2-D pencil table
     layouts) matches the single-device ETDRK4 trajectory on the
     8-virtual-device mesh, at a dt above the RK4 gravity-wave bound."""
-    from xlab_fftbarotropic_tpu.parallel import (
+    from xlab_fftbarotropic.parallel import (
         ShardedShallowWaterModel, make_mesh)
     cfg = ModelConfig(nx=64, ny=64, time_scheme="etdrk4")
     cfg = cfg.replace(dt=2 * max_stable_dt(cfg))
     if decomp == "pencil":
-        from xlab_fftbarotropic_tpu.parallel import pencil
+        from xlab_fftbarotropic.parallel import pencil
         mesh = pencil.make_pencil_mesh((2, 4), jax.devices())
     else:
         mesh = make_mesh(jax.devices())
@@ -243,54 +203,12 @@ def test_sharded_etdrk4_matches_single(decomp):
                                    rtol=0, atol=5e-5)
 
 
-def test_etd_fuse_matches_unfused():
-    """The COMBINE matvec-epilogue fusion (stage = z0 + scale*(Q @ N),
-    ops/pallas_sw.py:_combine_mv_kernel) reproduces the unfused plane
-    step at float32 round-off: same-input tendencies are bit-identical,
-    the whole-state step difference is ~5.6e-7 (the cn stage
-    reconstructs Q n1 as an - e2u — exact algebra, state-scale
-    cancellation round-off). Compared per whole state: a symmetric IC
-    makes individual imaginary planes near-zero, where per-plane
-    relative metrics explode on round-off."""
-    from xlab_fftbarotropic_tpu.models import shallow_water as swm
-    from xlab_fftbarotropic_tpu.models import etdrk4 as etd_mod
-    from xlab_fftbarotropic_tpu.ops import pallas_sw as psw
-    cfg = ModelConfig(nx=128, ny=128)
-    dtb = 2 * max_stable_dt(cfg)
-    t = SpectralTables.from_config(cfg)
-    tabs = etd_mod.build_tables(cfg, dtb)
-    m = ShallowWaterModel.build(cfg.replace(fft_backend="xla"))
-    p = swm._state_to_planes(
-        m.geostrophic_init(jnp.asarray(makefields.gaussian(cfg))))
-    es = psw.eta_pair_scale(p)
-    g = cfg.grid_shape
-    a = etd_mod.etdrk4_step_planes(t, tabs, p, None, g, es, fuse=False)
-    b = etd_mod.etdrk4_step_planes(t, tabs, p, None, g, es, fuse=True)
-    num = sum(float(jnp.linalg.norm(x - y)) ** 2
-              for x, y in zip(a, b)) ** 0.5
-    den = sum(float(jnp.linalg.norm(x)) ** 2 for x in a) ** 0.5
-    assert num / den < 1e-5, num / den
-    # the tendency outputs themselves are bit-identical given the same
-    # input (the epilogue only ADDS outputs)
-    def N(q, mv=None):
-        u, v, zeta, eta_s = psw.inverse_quad_planes(
-            *q, t.kx, t.ky, t.rlap, g, eta_scale=es)
-        return psw.forward_tendencies(
-            u, v, zeta, eta_s, q, None, t.kx, t.ky, t.lap, t.mask,
-            0.0, 0.0, 0.0, 0.0, g, eta_scale=es, mv_axpy=mv)
-    e2u = etd_mod._matvec_planes(tabs.E2, p)
-    plain = N(p)
-    fused_t, _ = N(p, mv=(e2u, tabs.Q, 1.0, True))
-    for x, y in zip(plain, fused_t):
-        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-
-
 def test_checkpoint_scheme_mismatch_rejected(tmp_path):
     """time_scheme is in the restart hash (the two schemes produce
     different trajectories at big dt — resuming one from the other
     would silently splice them), so a resume across schemes fails
     loudly while a same-scheme resume round-trips exactly."""
-    from xlab_fftbarotropic_tpu.io.checkpoint import (load_checkpoint,
+    from xlab_fftbarotropic.io.checkpoint import (load_checkpoint,
                                                       save_checkpoint)
     cfg = _cfg(time_scheme="etdrk4")
     m = ShallowWaterModel.build(cfg)
@@ -311,8 +229,8 @@ def test_unknown_time_scheme_rejected():
     fall-back would misreport the integrator actually used). The
     etdrk4 scheme itself is supported by ALL spectral families since
     round 5 — scalar-family coverage lives in tests/test_etd_scalar.py."""
-    from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
-    from xlab_fftbarotropic_tpu.models.tracer import TracerModel
+    from xlab_fftbarotropic.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic.models.tracer import TracerModel
     cfg = _cfg(time_scheme="leapfrog")
     with pytest.raises(ValueError, match="time_scheme"):
         BarotropicModel.build(cfg)
@@ -326,7 +244,7 @@ def test_adjoint_through_etdrk4():
     central finite difference along a random direction — the
     differentiable-simulation stack needs no ETD-specific rules (the
     matvecs are linear; the kernels' custom VJPs are shared with RK4)."""
-    from xlab_fftbarotropic_tpu import adjoint
+    from xlab_fftbarotropic import adjoint
     cfg = _cfg(time_scheme="etdrk4")
     cfg = cfg.replace(dt=2 * max_stable_dt(cfg))
     roll = adjoint.make_rollout(cfg, 3, model_kind="sw")

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.ic import makefields
-from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
-from xlab_fftbarotropic_tpu.models.fd_core import (
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.ic import makefields
+from xlab_fftbarotropic.models.barotropic import BarotropicModel
+from xlab_fftbarotropic.models.fd_core import (
     FDBarotropicModel, arakawa_jacobian, laplacian5, poisson_fft,
     poisson_jacobi)
 

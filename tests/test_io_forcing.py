@@ -8,10 +8,10 @@ import time
 import numpy as np
 import pytest
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.forcing import source as fsrc
-from xlab_fftbarotropic_tpu.io import checkpoint as ckpt
-from xlab_fftbarotropic_tpu.io.fieldio import (FieldRecorder, Manifest,
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.forcing import source as fsrc
+from xlab_fftbarotropic.io import checkpoint as ckpt
+from xlab_fftbarotropic.io.fieldio import (FieldRecorder, Manifest,
                                                read_field, write_field)
 
 
@@ -187,3 +187,21 @@ class TestCheckpoint:
         np.testing.assert_array_equal(z2, z)
         with pytest.raises(ValueError):
             ckpt.load_checkpoint(p, cfg.replace(nx=32))
+
+
+def test_forcing_producer_never_imports_jax(tmp_path):
+    """xfb-vort-src-input computes with numpy alone: it must not import
+    JAX, so it can never claim the accelerator its consumer runs on."""
+    import subprocess
+    import sys
+    code = (
+        "import sys\n"
+        "from xlab_fftbarotropic.cli import vort_src_input as v\n"
+        "sys.stdout = open(sys.argv[1], 'w')\n"
+        "v.main(['--nx', '16', '--ny', '16', '--total-steps', '4'])\n"
+        "sys.stdout.close()\n"
+        "sys.exit(3 if 'jax' in sys.modules else 0)\n")
+    out = tmp_path / "stream.bin"
+    r = subprocess.run([sys.executable, "-c", code, str(out)],
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]

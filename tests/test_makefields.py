@@ -7,8 +7,8 @@ source directly in float64 numpy and compares the generator output
 
 import numpy as np
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.ic import makefields
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.ic import makefields
 
 
 CFG = ModelConfig(nx=96, ny=96)

@@ -1,4 +1,4 @@
-"""Differential tests: TPU-native model vs. the float32 CPU oracle.
+"""Differential tests: the JAX model vs. the float32 CPU oracle.
 
 The oracle (oracle/reference_cpu.py) is a statement-level numpy transcription
 of /root/reference/src/main.cpp — the executable spec standing in for the
@@ -10,10 +10,10 @@ the round-1 analogue of the 'vort_step_*.bin allclose' gate in BASELINE.md.
 import numpy as np
 import pytest
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.ic import makefields
-from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
-from xlab_fftbarotropic_tpu.oracle.reference_cpu import OracleBarotropic
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.ic import makefields
+from xlab_fftbarotropic.models.barotropic import BarotropicModel
+from xlab_fftbarotropic.oracle.reference_cpu import OracleBarotropic
 
 
 def rel_err(a, b):
@@ -30,7 +30,7 @@ class TestSingleStep:
         z_np = np.fft.rfft2(vort0).astype(np.complex64)
         np.testing.assert_allclose(np.asarray(z), z_np, rtol=1e-4, atol=1e-6)
 
-        from xlab_fftbarotropic_tpu.models.barotropic import tendency
+        from xlab_fftbarotropic.models.barotropic import tendency
         d_jax = np.asarray(tendency(model.tables, z, model.zero_source(),
                                     small_cfg.nu, small_cfg.grid_shape))
         d_np, _, _, _ = oracle.rhs(z_np)
@@ -129,10 +129,10 @@ def test_paired_fft_path_stays_on_oracle_trajectory():
     within loose drift tolerances. Without the column-0/Nyquist
     symmetrization in ops/fft.py:_hermitian_full this error is ~5e-3."""
     import numpy as np
-    from xlab_fftbarotropic_tpu.config import ModelConfig
-    from xlab_fftbarotropic_tpu.ic import makefields
-    from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
-    from xlab_fftbarotropic_tpu.oracle import reference_cpu as oracle
+    from xlab_fftbarotropic.config import ModelConfig
+    from xlab_fftbarotropic.ic import makefields
+    from xlab_fftbarotropic.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic.oracle import reference_cpu as oracle
 
     cfg = ModelConfig(nx=64, ny=64)
     v0 = makefields.kuo2004(cfg)

@@ -27,9 +27,9 @@ _WORKER = textwrap.dedent("""
     import jax
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
-    from xlab_fftbarotropic_tpu.parallel import multihost
-    from xlab_fftbarotropic_tpu import runner
-    from xlab_fftbarotropic_tpu.config import ModelConfig
+    from xlab_fftbarotropic.parallel import multihost
+    from xlab_fftbarotropic import runner
+    from xlab_fftbarotropic.config import ModelConfig
 
     workdir = sys.argv[1]
     assert multihost.initialize() is True
@@ -59,10 +59,10 @@ def _free_port():
 
 
 def test_two_process_sharded_run_records_once(tmp_path):
-    from xlab_fftbarotropic_tpu import runner
-    from xlab_fftbarotropic_tpu.config import ModelConfig
-    from xlab_fftbarotropic_tpu.ic import makefields
-    from xlab_fftbarotropic_tpu.io.fieldio import read_field, write_field
+    from xlab_fftbarotropic import runner
+    from xlab_fftbarotropic.config import ModelConfig
+    from xlab_fftbarotropic.ic import makefields
+    from xlab_fftbarotropic.io.fieldio import read_field, write_field
 
     # shared IC on disk, exactly like a pod run's shared filesystem
     (tmp_path / "input").mkdir()

@@ -1,4 +1,4 @@
-"""MXU matmul-FFT (ops/mxu_fft.py) vs numpy/jnp.fft reference.
+"""DFT-as-matmul FFT (ops/mxu_fft.py) vs numpy/jnp.fft reference.
 
 The four-step factorization must reproduce the library transforms to
 float32 round-off at every grid size the framework uses; the model-level
@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.ic import makefields
-from xlab_fftbarotropic_tpu.ops import mxu_fft
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.ic import makefields
+from xlab_fftbarotropic.ops import mxu_fft
 
 
 def _rel(a, b):
@@ -59,9 +59,9 @@ def test_non_power_of_two_rejected():
 
 def test_rk4_trajectory_equivalence():
     """20 RK4 steps on the matmul transforms vs the jnp.fft core."""
-    from xlab_fftbarotropic_tpu.models import barotropic as m
-    from xlab_fftbarotropic_tpu.ops import fft
-    from xlab_fftbarotropic_tpu.ops.spectral import SpectralTables
+    from xlab_fftbarotropic.models import barotropic as m
+    from xlab_fftbarotropic.ops import fft
+    from xlab_fftbarotropic.ops.spectral import SpectralTables
 
     cfg = ModelConfig(nx=128, ny=128)
     t = SpectralTables.from_config(cfg)

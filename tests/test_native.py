@@ -8,8 +8,8 @@ import threading
 import numpy as np
 import pytest
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.io import fieldio, native_stream
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.io import fieldio, native_stream
 
 pytestmark = pytest.mark.skipif(
     not native_stream.ensure_built(), reason="native toolchain unavailable")
@@ -73,7 +73,7 @@ def test_native_fifo_protocol(tmp_path, rng):
 
 
 def test_make_reader_prefers_native(tmp_path):
-    from xlab_fftbarotropic_tpu.forcing.source import make_reader
+    from xlab_fftbarotropic.forcing.source import make_reader
     cfg = ModelConfig(nx=8, ny=8)
     fifo = tmp_path / "fifo2"
     os.mkfifo(fifo)

@@ -4,24 +4,20 @@ configuration.hpp:17).
 
 Anchors mirror tests/test_drag.py: a single Fourier mode self-advects to
 zero, so its exact trajectory is zeta0 * exp(-(nu k^2 + nu4 k^4 + r) t);
-the plane stepper carries nu4 by the exact table fold
-lap := nu*lap - r - nu4*lap^2; SW applies it to zeta AND div (mass
+SW applies it to zeta AND div (mass
 untouched); tracer flow only; sharded/adjoint thread the coefficient.
 """
-
-import warnings
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
-from xlab_fftbarotropic_tpu.models import shallow_water as sw
-from xlab_fftbarotropic_tpu.models import tracer as tr
-from xlab_fftbarotropic_tpu.ops import fft
-from xlab_fftbarotropic_tpu.ops.spectral import SpectralTables
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.models.barotropic import BarotropicModel
+from xlab_fftbarotropic.models import shallow_water as sw
+from xlab_fftbarotropic.models import tracer as tr
+from xlab_fftbarotropic.ops import fft
+from xlab_fftbarotropic.ops.spectral import SpectralTables
 
 # RK4 stability bounds nu4 by the GRID-scale rate: nu4*k_max^4*dt <~
 # 2.8, i.e. nu4 <~ 8e13 at 64^2 (k_max ~ 3.3e-4 within the dealias
@@ -57,21 +53,6 @@ def test_single_mode_analytic_decay():
     assert np.max(np.abs(got - ref)) < 1e-5 * np.max(np.abs(v0))
 
 
-def test_plane_stepper_nu4_matches_xla():
-    """The lap := nu*lap - r - nu4*lap^2 fold on the fused plane stepper
-    must follow the explicit-term XLA path (kernels untouched)."""
-    from xlab_fftbarotropic_tpu.ic import makefields
-    cfg = ModelConfig(nx=128, ny=128, nu4=NU4_128, r_drag=1e-3)
-    v0 = makefields.kuo2004(cfg)
-    m_ref = BarotropicModel.build(cfg)
-    z_ref = m_ref.segment(m_ref.init_state(v0), m_ref.zero_source(), 10)
-    m_pl = BarotropicModel.build(cfg.replace(fft_backend="pallas"))
-    z_pl = m_pl.segment(m_pl.init_state(v0), m_pl.zero_source(), 10)
-    a = np.asarray(fft.inverse(z_ref, cfg.grid_shape))
-    b = np.asarray(fft.inverse(z_pl, cfg.grid_shape))
-    assert np.max(np.abs(a - b)) < 1e-6 * max(1.0, np.max(np.abs(a)))
-
-
 def test_sw_nu4_tendency_exact():
     """SW: nu4 adds exactly (-nu4 lap^2 zeta, -nu4 lap^2 div, 0)."""
     cfg = ModelConfig(nx=32, ny=32)
@@ -100,19 +81,6 @@ def test_sw_nu4_tendency_exact():
                                   np.asarray(d0.eta_hat))
 
 
-def test_sw_plane_stepper_falls_back_under_nu4(monkeypatch):
-    """The SW plane kernels' lap table doubles as the pressure operator,
-    so nu4 runs must take the per-transform path (with a warning) —
-    same contract as drag."""
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    cfg = ModelConfig(nx=256, ny=256, dt=0.05, nu4=NU4,
-                      fft_backend="pallas")
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        sw.ShallowWaterModel.build(cfg)
-    assert any("plane stepper" in str(x.message) for x in w)
-
-
 def test_tracer_nu4_flow_only():
     cfg = ModelConfig(nx=32, ny=32)
     t = SpectralTables.from_config(cfg)
@@ -139,7 +107,7 @@ def test_tracer_nu4_flow_only():
 def test_fd_core_nu4_decay():
     """FD core: with nu=0 the zonal mode decays at the DISCRETE rate
     nu4 * k_eff^4 (iterated 5-point Laplacian)."""
-    from xlab_fftbarotropic_tpu.models.fd_core import FDBarotropicModel
+    from xlab_fftbarotropic.models.fd_core import FDBarotropicModel
     cfg = ModelConfig(nx=32, ny=32, nu=0.0, dt=3.0, nu4=NU4)
     m = FDBarotropicModel.build(cfg)
     v0 = jnp.asarray(_single_mode_ic(cfg, amp=1.0))
@@ -155,8 +123,8 @@ def test_fd_core_nu4_decay():
 
 
 def test_sharded_nu4_matches_single_device():
-    from xlab_fftbarotropic_tpu.ic import makefields
-    from xlab_fftbarotropic_tpu.parallel import (ShardedBarotropicModel,
+    from xlab_fftbarotropic.ic import makefields
+    from xlab_fftbarotropic.parallel import (ShardedBarotropicModel,
                                                  make_mesh)
     cfg = ModelConfig(nx=64, ny=64, nu4=NU4)
     mesh = make_mesh(jax.devices())
@@ -171,7 +139,7 @@ def test_sharded_nu4_matches_single_device():
 
 
 def test_adjoint_gradient_carries_nu4():
-    from xlab_fftbarotropic_tpu.adjoint import make_rollout
+    from xlab_fftbarotropic.adjoint import make_rollout
     cfg = ModelConfig(nx=32, ny=32, dt=3.0, nu4=NU4)
     n = 20
     roll = make_rollout(cfg, n)
@@ -190,7 +158,7 @@ def test_adjoint_gradient_carries_nu4():
 
 def test_cli_flag_roundtrip():
     import argparse
-    from xlab_fftbarotropic_tpu.config import (add_config_args,
+    from xlab_fftbarotropic.config import (add_config_args,
                                                config_from_args)
     p = add_config_args(argparse.ArgumentParser())
     cfg = config_from_args(p.parse_args(["--nu4", "1e15"]))

@@ -12,10 +12,10 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.ic import makefields
-from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
-from xlab_fftbarotropic_tpu.parallel import (
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.ic import makefields
+from xlab_fftbarotropic.models.barotropic import BarotropicModel
+from xlab_fftbarotropic.parallel import (
     ShardedBarotropicModel, make_mesh, make_fft_pair)
 
 try:
@@ -121,8 +121,8 @@ def test_sharded_state_layout(mesh):
 
 
 def test_sharded_shallow_water_matches_single(mesh):
-    from xlab_fftbarotropic_tpu.models.shallow_water import ShallowWaterModel
-    from xlab_fftbarotropic_tpu.parallel import ShardedShallowWaterModel
+    from xlab_fftbarotropic.models.shallow_water import ShallowWaterModel
+    from xlab_fftbarotropic.parallel import ShardedShallowWaterModel
     cfg = ModelConfig(nx=64, ny=64, nu=0.0, gravity=9.81, mean_depth=1000.0)
     vort0 = makefields.gaussian(cfg, zeta0=1e-5)
     single = ShallowWaterModel.build(cfg)
@@ -145,10 +145,26 @@ def test_sharded_shallow_water_matches_single(mesh):
                                    rtol=0, atol=5e-5)
 
 
+@pytest.mark.parametrize("decomp", ["slab", "xpencil", "pencil"])
+def test_p4_barotropic_segment_matches_single(p4_mesh, decomp):
+    """Four devices, every decomposition: the sharded barotropic segment
+    equals the single-device one (the four-card layout)."""
+    cfg = ModelConfig(nx=64, ny=64, dt=3.0, nu=6.5)
+    vort0 = makefields.kuo2004(cfg)
+    single = BarotropicModel.build(cfg)
+    multi = ShardedBarotropicModel.build(cfg, p4_mesh(decomp),
+                                         decomp=decomp)
+    z1 = single.segment(single.init_state(vort0), single.zero_source(), 4)
+    zN = multi.segment(multi.init_state(vort0), multi.zero_source(), 4)
+    a, b = multi.unshard_spectral(zN), np.asarray(z1)
+    rel = np.linalg.norm(a - b) / np.linalg.norm(b)
+    assert rel < 1e-5, rel
+
+
 def test_2d_mesh_multihost_layout():
     """Flattened ('host','chip') sharding matches the 1-D slab result —
-    the multi-host path (DCN x ICI) on a virtual 2x4 mesh."""
-    from xlab_fftbarotropic_tpu.parallel import make_mesh2d
+    the multi-host path on a virtual 2x4 mesh."""
+    from xlab_fftbarotropic.parallel import make_mesh2d
     cfg = ModelConfig(nx=64, ny=64)
     vort0 = makefields.gaussian(cfg)
     mesh2 = make_mesh2d((2, 4))
@@ -168,7 +184,7 @@ def test_2d_mesh_multihost_layout():
 
 def test_multihost_initialize_noop_single_process():
     """No coordinator config -> no-op False; rank 0 owns I/O."""
-    from xlab_fftbarotropic_tpu.parallel import multihost
+    from xlab_fftbarotropic.parallel import multihost
 
     assert multihost.initialize() is False
     assert multihost.is_primary()

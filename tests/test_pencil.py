@@ -12,13 +12,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.ic import makefields
-from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
-from xlab_fftbarotropic_tpu.parallel import (ShardedBarotropicModel,
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.ic import makefields
+from xlab_fftbarotropic.models.barotropic import BarotropicModel
+from xlab_fftbarotropic.parallel import (ShardedBarotropicModel,
                                              ShardedShallowWaterModel,
                                              make_mesh)
-from xlab_fftbarotropic_tpu.parallel import pencil
+from xlab_fftbarotropic.parallel import pencil
 
 try:
     shard_map = jax.shard_map
@@ -73,7 +73,7 @@ def test_pencil_roundtrip(mesh, rng):
 
 def test_pencil_matches_slab_fft(mesh, rng):
     """Pencil and slab forward transforms agree on the same data."""
-    from xlab_fftbarotropic_tpu.parallel import make_fft_pair
+    from xlab_fftbarotropic.parallel import make_fft_pair
     from jax.sharding import PartitionSpec as P
 
     nx = ny = 64
@@ -124,7 +124,7 @@ def test_pencil_barotropic_diags_match(mesh):
 
 def test_pencil_sw_segment_matches_single(mesh):
     """Sharded shallow water under the pencil decomposition."""
-    from xlab_fftbarotropic_tpu.models.shallow_water import (
+    from xlab_fftbarotropic.models.shallow_water import (
         ShallowWaterModel)
 
     cfg = ModelConfig(nx=64, ny=64, dt=1.0)
@@ -147,10 +147,36 @@ def test_pencil_sw_segment_matches_single(mesh):
     nz = np.max(np.abs(phys["zeta_hat"][0]))
     for name, (a, b) in phys.items():
         # div is the small residual of cancelling zeta-scale terms; its
-        # round-off floor is set by the zeta-scale dynamics (see
-        # tests/test_pallas_sw.py) — normalize it by the shared scale
+        # round-off floor is set by the zeta-scale dynamics — normalize
+        # it by the shared scale
         norm = nz if name == "div_hat" else np.max(np.abs(a))
         assert np.max(np.abs(a - b)) < 1e-5 * max(1e-9, norm), name
+
+
+@pytest.mark.parametrize("decomp", ["slab", "xpencil", "pencil"])
+def test_p4_sw_segment_matches_single(p4_mesh, decomp):
+    """Four devices, every decomposition: the sharded shallow-water
+    segment equals the single-device one. eta is compared in relative
+    L2; div, the small residual of cancelling zeta-scale terms, is
+    normalised by zeta's norm (tests/test_shallow_water.py policy)."""
+    from xlab_fftbarotropic.models.shallow_water import (
+        ShallowWaterModel)
+
+    cfg = ModelConfig(nx=64, ny=64, dt=1.0)
+    v0 = makefields.gaussian(cfg, zeta0=1e-5)
+    single = ShallowWaterModel.build(cfg)
+    ref = single.segment(single.geostrophic_init(v0),
+                         single.zero_source(), 4)
+    m = ShardedShallowWaterModel.build(cfg, p4_mesh(decomp), decomp=decomp)
+    got = m.unshard_state(m.segment(m.geostrophic_init(v0),
+                                    m.zero_source(), 4))
+    nz = np.linalg.norm(np.asarray(ref.zeta_hat))
+    for name in ("zeta_hat", "div_hat", "eta_hat"):
+        a = np.asarray(getattr(got, name))
+        b = np.asarray(getattr(ref, name))
+        norm = nz if name == "div_hat" else np.linalg.norm(b)
+        rel = np.linalg.norm(a - b) / max(norm, 1e-30)
+        assert rel < 1e-5, (name, rel)
 
 
 def test_pencil_state_roundtrip_strips_pad(mesh):
@@ -169,7 +195,9 @@ def test_pencil_validation_errors(mesh):
     with pytest.raises(ValueError, match="divisible"):
         ShardedBarotropicModel.build(cfg, mesh, decomp="pencil")
     cfg2 = ModelConfig(nx=64, ny=64)
-    with pytest.raises(ValueError, match="fft_impl"):
+    # the distributed transform is XLA's all_to_all alone: no option
+    # selects another implementation
+    with pytest.raises(TypeError, match="fft_impl"):
         ShardedBarotropicModel.build(cfg2, mesh, decomp="pencil",
                                      fft_impl="pallas")
     slab = make_mesh(jax.devices())

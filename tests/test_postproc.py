@@ -4,16 +4,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.diagnostics import find_min as fm
-from xlab_fftbarotropic_tpu.diagnostics import kinematics as kin
-from xlab_fftbarotropic_tpu.diagnostics.eddy_diffusivity import effective_diffusivity
-from xlab_fftbarotropic_tpu.diagnostics.invert_pres import PressureInverter
-from xlab_fftbarotropic_tpu.ic import makefields
-from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
-from xlab_fftbarotropic_tpu.ops import fft
-from xlab_fftbarotropic_tpu.ops.spectral import SpectralTables
-from xlab_fftbarotropic_tpu.oracle.reference_cpu import (OracleBarotropic,
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.diagnostics import find_min as fm
+from xlab_fftbarotropic.diagnostics import kinematics as kin
+from xlab_fftbarotropic.diagnostics.eddy_diffusivity import effective_diffusivity
+from xlab_fftbarotropic.diagnostics.invert_pres import PressureInverter
+from xlab_fftbarotropic.ic import makefields
+from xlab_fftbarotropic.models.barotropic import BarotropicModel
+from xlab_fftbarotropic.ops import fft
+from xlab_fftbarotropic.ops.spectral import SpectralTables
+from xlab_fftbarotropic.oracle.reference_cpu import (OracleBarotropic,
                                                          oracle_invert_pressure)
 
 
@@ -161,7 +161,7 @@ class TestEffectiveDiffusivity:
         formalism gives L_e = L exactly at every interior level:
         <|grad q|^2>_Q = k^2 sin^2(theta), dA/dQ = -lx*ly/(pi sin(theta))
         => L_e^2 = (k*lx*ly/pi)^2 with k = 2*pi*hypot(a/lx, b/ly)."""
-        from xlab_fftbarotropic_tpu.config import ModelConfig
+        from xlab_fftbarotropic.config import ModelConfig
         # ny=250 (not a power of two) makes the stripe phase
         # a*i/nx + b*j/ny equidistribute over ~nx*ny distinct values, so
         # bin counts are smooth; on a 256^2 grid cos(2*pi*3i/256) takes
@@ -189,7 +189,7 @@ class TestEffectiveDiffusivity:
         """A radially symmetric tracer has circular contours: L_e = L_min
         exactly (kappa_ratio == 1), pinned quantitatively; the UNCLIPPED
         ratio must be exposed and close to 1 (not just clipped up to 1)."""
-        from xlab_fftbarotropic_tpu.config import ModelConfig
+        from xlab_fftbarotropic.config import ModelConfig
         cfg = ModelConfig(nx=256, ny=256)
         t = SpectralTables.from_config(cfg)
         x, y = cfg.coords()
@@ -219,10 +219,10 @@ def test_diagnose_cli(tmp_path, monkeypatch, capsys):
     import io as _io
     import sys as _sys
     import numpy as np
-    from xlab_fftbarotropic_tpu.cli import diagnose
-    from xlab_fftbarotropic_tpu.config import ModelConfig
-    from xlab_fftbarotropic_tpu.ic import makefields
-    from xlab_fftbarotropic_tpu.io.fieldio import write_field, read_field
+    from xlab_fftbarotropic.cli import diagnose
+    from xlab_fftbarotropic.config import ModelConfig
+    from xlab_fftbarotropic.ic import makefields
+    from xlab_fftbarotropic.io.fieldio import write_field, read_field
 
     cfg = ModelConfig(nx=32, ny=32)
     vort = makefields.gaussian(cfg)

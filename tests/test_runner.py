@@ -9,12 +9,13 @@ import os
 import threading
 
 import numpy as np
+import pytest
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.forcing import source as fsrc
-from xlab_fftbarotropic_tpu.ic import makefields
-from xlab_fftbarotropic_tpu.io.fieldio import read_field, write_field
-from xlab_fftbarotropic_tpu.runner import run
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.forcing import source as fsrc
+from xlab_fftbarotropic.ic import makefields
+from xlab_fftbarotropic.io.fieldio import read_field, write_field
+from xlab_fftbarotropic.runner import run
 
 
 def make_cfg(tmp_path, **kw):
@@ -64,7 +65,7 @@ class TestSegmentEquivalence:
     def test_segmented_equals_stepwise(self, tmp_path):
         """The scanned hot path must equal per-step stepping exactly
         (same jitted step function, same order of operations)."""
-        from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
+        from xlab_fftbarotropic.models.barotropic import BarotropicModel
         cfg = make_cfg(tmp_path, total_steps=8)
         vort0 = makefields.gaussian(cfg)
         model = BarotropicModel.build(cfg)
@@ -123,7 +124,7 @@ class TestForcedRuns:
                        record=False)
         th.join()
 
-        from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
+        from xlab_fftbarotropic.models.barotropic import BarotropicModel
         import jax.numpy as jnp
         model = BarotropicModel.build(cfg)
         z = model.segment(model.init_state(vort0), jnp.asarray(src_field), 6)
@@ -168,8 +169,8 @@ class TestResume:
 
 
 def test_runner_shallow_water_records_and_resumes(tmp_path):
-    from xlab_fftbarotropic_tpu import runner
-    from xlab_fftbarotropic_tpu.ic import makefields
+    from xlab_fftbarotropic import runner
+    from xlab_fftbarotropic.ic import makefields
     import numpy as np
     cfg = ModelConfig(nx=32, ny=32, total_steps=20, record_step=10,
                       checkpoint_step=10, output_dir=str(tmp_path / "out"))
@@ -193,8 +194,8 @@ def test_runner_shallow_water_records_and_resumes(tmp_path):
 
 def test_resume_into_different_output_dir(tmp_path):
     """Path fields must not affect the restart hash (only numerics do)."""
-    from xlab_fftbarotropic_tpu import runner
-    from xlab_fftbarotropic_tpu.ic import makefields
+    from xlab_fftbarotropic import runner
+    from xlab_fftbarotropic.ic import makefields
     cfg = ModelConfig(nx=32, ny=32, total_steps=10, record_step=5,
                       checkpoint_step=5, output_dir=str(tmp_path / "a"))
     runner.run(cfg, vort0=makefields.gaussian(cfg),
@@ -214,9 +215,9 @@ def test_blowup_guard_fires(tmp_path):
     """A CFL-violating run must fail loudly at a record boundary with the
     step index, not write NaN fields silently."""
     import pytest as _pytest
-    from xlab_fftbarotropic_tpu import runner
-    from xlab_fftbarotropic_tpu.ic import makefields
-    from xlab_fftbarotropic_tpu.utils.guards import BlowUpError
+    from xlab_fftbarotropic import runner
+    from xlab_fftbarotropic.ic import makefields
+    from xlab_fftbarotropic.utils.guards import BlowUpError
     cfg = ModelConfig(nx=32, ny=32, dt=1e6, nu=0.0, total_steps=40,
                       record_step=10, output_dir=str(tmp_path / "out"))
     vort0 = makefields.kuo2004(cfg)
@@ -226,7 +227,7 @@ def test_blowup_guard_fires(tmp_path):
 
 def test_profiling_utils():
     import jax.numpy as jnp
-    from xlab_fftbarotropic_tpu.utils.profiling import (
+    from xlab_fftbarotropic.utils.profiling import (
         StepTimer, throughput, timed)
     import jax
     f = jax.jit(lambda x: x * 2.0 + 1.0)
@@ -243,8 +244,8 @@ def test_profiling_utils():
 def test_runner_fd_core(tmp_path):
     """The FD cross-check family runs through the same runner/recorder."""
     import numpy as np
-    from xlab_fftbarotropic_tpu import runner
-    from xlab_fftbarotropic_tpu.ic import makefields
+    from xlab_fftbarotropic import runner
+    from xlab_fftbarotropic.ic import makefields
     cfg = ModelConfig(nx=32, ny=32, total_steps=10, record_step=5,
                       output_dir=str(tmp_path / "out"))
     r = runner.run(cfg, vort0=makefields.gaussian(cfg), model_kind="fd",
@@ -263,9 +264,9 @@ def test_runner_sharded_matches_single(tmp_path):
     if len(jax.devices()) < 2:
         import pytest as _p
         _p.skip("needs multiple devices")
-    from xlab_fftbarotropic_tpu import runner
-    from xlab_fftbarotropic_tpu.ic import makefields
-    from xlab_fftbarotropic_tpu.io.fieldio import read_field
+    from xlab_fftbarotropic import runner
+    from xlab_fftbarotropic.ic import makefields
+    from xlab_fftbarotropic.io.fieldio import read_field
     cfg = ModelConfig(nx=64, ny=64, total_steps=10, record_step=5)
     vort0 = makefields.gaussian(cfg)
     r1 = runner.run(cfg.replace(output_dir=str(tmp_path / "a")), vort0=vort0,
@@ -293,7 +294,7 @@ class TestDebugFields:
         (main.cpp:156-176, 216-222): physical zeta gradients and the
         advective tendency BEFORE forward transform + viscosity."""
         import jax.numpy as jnp
-        from xlab_fftbarotropic_tpu.ops import fft, spectral as sp
+        from xlab_fftbarotropic.ops import fft, spectral as sp
 
         cfg = make_cfg(tmp_path)
         vort0 = makefields.gaussian(cfg)
@@ -348,8 +349,8 @@ def test_blowup_still_closes_manifest(tmp_path):
     """ADVICE r1: a BlowUpError mid-run must still close the manifest and
     the source reader (try/finally path)."""
     import pytest as _pytest
-    from xlab_fftbarotropic_tpu import runner
-    from xlab_fftbarotropic_tpu.utils.guards import BlowUpError
+    from xlab_fftbarotropic import runner
+    from xlab_fftbarotropic.utils.guards import BlowUpError
     cfg = ModelConfig(nx=32, ny=32, dt=1e6, nu=0.0, total_steps=40,
                       record_step=10, output_dir=str(tmp_path / "out"))
     vort0 = makefields.kuo2004(cfg)
@@ -361,39 +362,47 @@ def test_blowup_still_closes_manifest(tmp_path):
     assert "vort_step_0.bin" in text
 
 
-def test_fast_transforms_flag_plumbs(tmp_path, monkeypatch):
-    """xfb-run --fast-transforms must flip the Pallas kernel matmul mode
-    (XFB_PALLAS_MM=default + the already-imported module global) and the
-    run must still complete. On CPU interpret, DEFAULT-precision dots
-    are full f32, so the trajectory is unchanged; the 2.1x / 2.5e-5
-    rel-L2 effect is TPU-only (measured, BASELINE.md)."""
-    from xlab_fftbarotropic_tpu.cli import run as cli_run
-    from xlab_fftbarotropic_tpu.ops import pallas_fft
+@pytest.mark.parametrize("argv", [
+    ["--fast-transforms"],
+    ["--shard", "--shard-fft", "overlap"],
+    ["--fft-backend", "pallas"],
+])
+def test_removed_flags_rejected(tmp_path, argv):
+    """The flags that selected the removed kernels are gone: argparse
+    rejects them (exit 2) instead of falling back to another path."""
+    from xlab_fftbarotropic.cli import run as cli_run
 
-    # setenv FIRST so pytest records the pre-test state (absent) and
-    # removes the CLI's os.environ write at teardown — delenv on an
-    # absent key records nothing and the flag would leak process-wide
-    monkeypatch.setenv("XFB_PALLAS_MM", "fp32")
-    monkeypatch.setattr(pallas_fft, "MM_MODE", "fp32")
+    with pytest.raises(SystemExit) as ei:
+        cli_run.main(["-O", str(tmp_path / "out"), "--cpu"] + argv)
+    assert ei.value.code == 2
+
+
+def test_settings_banner_names_device(tmp_path, capsys):
+    """xfb-run prints the platform, device kind and device count it runs
+    on in its settings banner (the CPU here)."""
+    import jax
+
+    from xlab_fftbarotropic.cli import run as cli_run
+
     inp = tmp_path / "input"
     inp.mkdir()
-    cfg = ModelConfig(nx=32, ny=32, input_dir=str(inp),
-                      output_dir=str(tmp_path / "out"))
+    cfg = ModelConfig(nx=32, ny=32)
     write_field(str(inp / "initial_vorticity.bin"),
                 np.asarray(makefields.gaussian(cfg)))
     cli_run.main(["-I", str(inp), "-O", str(tmp_path / "out"),
-                  "--nx", "32", "--ny", "32", "--total-steps", "4",
-                  "--record-step", "2", "--fast-transforms", "--cpu",
+                  "--nx", "32", "--ny", "32", "--total-steps", "2",
+                  "--record-step", "2", "--cpu", "--no-record",
                   "--manifest", str(tmp_path / "log")])
-    assert os.environ.get("XFB_PALLAS_MM") == "default"
-    assert pallas_fft.MM_MODE == "default"
-    assert (tmp_path / "out" / "vort_step_2.bin").exists()
+    err = capsys.readouterr().err
+    dev = jax.devices()[0]
+    assert (f"Device                : {dev.platform} {dev.device_kind} "
+            f"x {len(jax.devices())}") in err
 
 
 def test_profile_dir_flag_writes_trace(tmp_path):
     """xfb-run --profile-dir wraps the run in a jax.profiler trace scope
     and leaves a TensorBoard profile-plugin directory behind."""
-    from xlab_fftbarotropic_tpu.cli import run as cli_run
+    from xlab_fftbarotropic.cli import run as cli_run
 
     inp = tmp_path / "input"
     inp.mkdir()
@@ -467,60 +476,44 @@ def test_record_fields_subset(tmp_path):
             record_only=["vort", "nope"])
 
 
-def test_chunked_fetch_matches_asarray(monkeypatch):
-    """gather_to_host's chunked device→host path (XFB_FETCH_CHUNK_MB) is
-    bit-identical to a whole-buffer np.asarray for every dtype/shape it
-    sees (records, checkpoints, spectral states), including axis sizes
-    that do not divide the chunk row count."""
-    import jax.numpy as jnp
-
-    from xlab_fftbarotropic_tpu.parallel import multihost
-
+def _gather_cases():
     rng = np.random.default_rng(0)
-    cases = [
-        rng.standard_normal((37, 19)).astype(np.float32),
-        (rng.standard_normal((16, 9)) +
-         1j * rng.standard_normal((16, 9))).astype(np.complex64),
-        rng.standard_normal(51).astype(np.float32),
-        np.float32(3.5),                       # scalar passthrough
-    ]
-    # ~100-byte chunks force many hops on even these tiny arrays
-    monkeypatch.setenv("XFB_FETCH_CHUNK_MB", str(100 / (1024 * 1024)))
-    for a in cases:
-        got = multihost.gather_to_host(jnp.asarray(a))
-        np.testing.assert_array_equal(np.asarray(got), a)
-        assert got.dtype == a.dtype
-    # chunking disabled: plain asarray path
-    monkeypatch.setenv("XFB_FETCH_CHUNK_MB", "0")
-    a = cases[0]
-    np.testing.assert_array_equal(
-        multihost.gather_to_host(jnp.asarray(a)), a)
+    return {
+        "real": rng.standard_normal((1024, 1024)).astype(np.float32),
+        "complex": (rng.standard_normal((1024, 513)) + 1j *
+                    rng.standard_normal((1024, 513))).astype(np.complex64),
+        "batched": rng.standard_normal((3, 512, 512)).astype(np.float32),
+        "odd": rng.standard_normal((37, 19)).astype(np.float32),
+    }
 
 
-def test_chunked_fetch_oversized_rows_flatten(monkeypatch):
-    """Arrays whose axis-0 rows exceed the chunk limit — batched record
-    fields like (n_members, nx, ny) — and singleton-leading-axis arrays
-    must still be fetched in under-limit pieces via the flattened 1-D
-    view (round-3 ADVICE medium), not in one whole-row transfer."""
-    import jax
+@pytest.mark.parametrize("case", ["real", "complex", "batched", "odd"])
+def test_gather_to_host_matches_asarray(case):
+    """gather_to_host of a device array (records, checkpoints, spectral
+    states — 4 MB here) is exactly np.asarray, dtype and shape included."""
     import jax.numpy as jnp
 
-    from xlab_fftbarotropic_tpu.parallel import multihost
+    from xlab_fftbarotropic.parallel import multihost
 
-    rng = np.random.default_rng(1)
-    cases = [
-        rng.standard_normal((3, 64, 64)).astype(np.float32),   # 16 KB rows
-        rng.standard_normal((1, 97, 33)).astype(np.float32),   # M == 1
-        (rng.standard_normal((2, 40, 21)) +
-         1j * rng.standard_normal((2, 40, 21))).astype(np.complex64),
-    ]
-    monkeypatch.setenv("XFB_FETCH_CHUNK_MB", str(1000 / (1024 * 1024)))
-    limit = multihost._fetch_chunk_bytes()
-    for a in cases:
-        assert a.nbytes // a.shape[0] > limit   # rows genuinely oversized
-        got = multihost.gather_to_host(jnp.asarray(a))
-        np.testing.assert_array_equal(np.asarray(got), a)
-        assert got.dtype == a.dtype and got.shape == a.shape
+    a = _gather_cases()[case]
+    got = multihost.gather_to_host(jnp.asarray(a))
+    assert isinstance(got, np.ndarray)
+    assert got.dtype == a.dtype and got.shape == a.shape
+    np.testing.assert_array_equal(got, a)
+
+
+def test_gather_to_host_sharded_array():
+    """A row-sharded array over the 8 virtual devices (fully addressable
+    in one process) gathers to the same host array."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from xlab_fftbarotropic.parallel import make_mesh, multihost
+
+    a = _gather_cases()["complex"]
+    mesh = make_mesh(jax.devices())
+    x = jax.device_put(a, NamedSharding(mesh, P("x", None)))
+    np.testing.assert_array_equal(multihost.gather_to_host(x), a)
 
 
 def test_cli_empty_record_fields_rejected(tmp_path):
@@ -528,7 +521,7 @@ def test_cli_empty_record_fields_rejected(tmp_path):
     exit 2), not silently record nothing (round-3 ADVICE)."""
     import pytest
 
-    from xlab_fftbarotropic_tpu.cli import run as cli_run
+    from xlab_fftbarotropic.cli import run as cli_run
 
     with pytest.raises(SystemExit) as ei:
         cli_run.main(["-O", str(tmp_path / "out"), "--cpu",

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.ic import makefields
-from xlab_fftbarotropic_tpu.models.shallow_water import ShallowWaterModel
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.ic import makefields
+from xlab_fftbarotropic.models.shallow_water import ShallowWaterModel
 
 
 def build(**kw):
@@ -109,7 +109,7 @@ def test_sw_reduces_toward_barotropic_at_large_depth():
     """With huge mean depth (fast gravity waves already balanced away by
     geostrophic init) the vorticity evolution approaches the barotropic
     model's over a short run."""
-    from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic.models.barotropic import BarotropicModel
     cfg = ModelConfig(nx=64, ny=64, nu=6.5, dt=1.0,
                       gravity=9.81, mean_depth=1e5)
     sw = ShallowWaterModel.build(cfg)
@@ -132,7 +132,7 @@ def test_gravity_wave_cfl_warning():
     4096^2 default-dt NaN, BASELINE.md); a compliant dt must not."""
     import warnings
 
-    from xlab_fftbarotropic_tpu.models.shallow_water import (
+    from xlab_fftbarotropic.models.shallow_water import (
         ShallowWaterModel, max_stable_dt)
 
     cfg = ModelConfig(nx=64, ny=64, dt=10 * max_stable_dt(
@@ -152,16 +152,16 @@ def test_gravity_wave_cfl_warning():
 
 def test_tendency_split_linear_equivalence():
     """tendency(split=True) — nonlinear-only products + exact spectral
-    f0/gravity terms (the per-transform twin of the plane stepper's
-    split-linear mode, ops/pallas_sw.py module note) — against a float64
+    f0/gravity terms (the form the ETDRK4 nonlinear tendency uses) —
+    against a float64
     numpy ground truth of the same contract: the split form must be at
     least as accurate as the default per component (it removes the
     transform round-off of the large f0*u / g*eta terms), including at
     the mean mode, where curl_z(f0 u) and div(f0 u) vanish exactly (a
     state with nonzero mean zeta/div/eta exposes a missing guard)."""
-    from xlab_fftbarotropic_tpu.models.shallow_water import SWState, tendency
-    from xlab_fftbarotropic_tpu.ops import fft
-    from xlab_fftbarotropic_tpu.ops.spectral import SpectralTables
+    from xlab_fftbarotropic.models.shallow_water import SWState, tendency
+    from xlab_fftbarotropic.ops import fft
+    from xlab_fftbarotropic.ops.spectral import SpectralTables
 
     cfg = ModelConfig(nx=64, ny=64)
     t = SpectralTables.from_config(cfg)

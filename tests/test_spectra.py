@@ -6,14 +6,14 @@ import sys
 import numpy as np
 import jax.numpy as jnp
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.diagnostics.spectra import (
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.diagnostics.spectra import (
     energy_enstrophy_spectrum, shell_tables)
-from xlab_fftbarotropic_tpu.ic import makefields
-from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel, \
+from xlab_fftbarotropic.ic import makefields
+from xlab_fftbarotropic.models.barotropic import BarotropicModel, \
     step_stats
-from xlab_fftbarotropic_tpu.ops import fft
-from xlab_fftbarotropic_tpu.ops.spectral import SpectralTables
+from xlab_fftbarotropic.ops import fft
+from xlab_fftbarotropic.ops.spectral import SpectralTables
 
 
 def _cfg(**kw):
@@ -85,7 +85,7 @@ def test_shell_tables_cover_every_mode():
 
 
 def test_draw_spectra_renders_png(tmp_path):
-    from xlab_fftbarotropic_tpu.viz.plots import draw_spectra
+    from xlab_fftbarotropic.viz.plots import draw_spectra
 
     cfg = _cfg()
     t = SpectralTables.from_config(cfg)
@@ -100,8 +100,8 @@ def test_draw_spectra_renders_png(tmp_path):
 
 
 def test_diagnose_cli_spectrum(tmp_path, monkeypatch):
-    from xlab_fftbarotropic_tpu.cli import diagnose
-    from xlab_fftbarotropic_tpu.io.fieldio import write_field
+    from xlab_fftbarotropic.cli import diagnose
+    from xlab_fftbarotropic.io.fieldio import write_field
 
     cfg = _cfg()
     vort = np.asarray(makefields.gaussian(cfg))

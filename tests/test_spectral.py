@@ -10,9 +10,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.ops import fft
-from xlab_fftbarotropic_tpu.ops import spectral as sp
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.ops import fft
+from xlab_fftbarotropic.ops import spectral as sp
 
 
 def tables(cfg):
@@ -147,7 +147,7 @@ class TestAgainstOracleTables:
     """The jnp tables must equal the numpy oracle tables bit-for-bit."""
 
     def test_tables_match(self, small_cfg):
-        from xlab_fftbarotropic_tpu.oracle.reference_cpu import OracleTables
+        from xlab_fftbarotropic.oracle.reference_cpu import OracleTables
         t = tables(small_cfg)
         o = OracleTables(small_cfg.nx, small_cfg.ny, small_cfg.lx,
                          small_cfg.ly, small_cfg.dealias_rule)
@@ -160,7 +160,7 @@ class TestAgainstOracleTables:
 
 def test_inverse_pair_matches_irfft2(rng):
     import jax.numpy as jnp
-    from xlab_fftbarotropic_tpu.ops import fft
+    from xlab_fftbarotropic.ops import fft
     a = rng.randn(32, 24).astype(np.float32)
     b = rng.randn(32, 24).astype(np.float32)
     sa = jnp.fft.rfft2(a)
@@ -171,7 +171,7 @@ def test_inverse_pair_matches_irfft2(rng):
 
 
 def test_forward_pair_matches_rfft2(rng):
-    from xlab_fftbarotropic_tpu.ops import fft
+    from xlab_fftbarotropic.ops import fft
     import jax.numpy as jnp
     a = rng.randn(48, 32).astype(np.float32)
     b = rng.randn(48, 32).astype(np.float32)

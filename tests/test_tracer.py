@@ -4,14 +4,15 @@ import os
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.ic import makefields
-from xlab_fftbarotropic_tpu.io.fieldio import read_field, write_field
-from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
-from xlab_fftbarotropic_tpu.models.tracer import (TracerModel, TracerState,
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.ic import makefields
+from xlab_fftbarotropic.io.fieldio import read_field, write_field
+from xlab_fftbarotropic.models.barotropic import BarotropicModel
+from xlab_fftbarotropic.models.tracer import (TracerModel, TracerState,
                                                   tracer_ic)
-from xlab_fftbarotropic_tpu import runner
+from xlab_fftbarotropic import runner
 
 
 def _cfg(**kw):
@@ -106,9 +107,9 @@ def test_nakamura_ratio_grows_under_stirring():
     the wound filaments under-resolve (ratio collapses below 1), so this
     runs at 128². Measured medians: 1.05 (t0) -> 1.03/1.10/1.36 at
     30/60/120 steps."""
-    from xlab_fftbarotropic_tpu.diagnostics.eddy_diffusivity import (
+    from xlab_fftbarotropic.diagnostics.eddy_diffusivity import (
         effective_diffusivity)
-    from xlab_fftbarotropic_tpu.ops.spectral import SpectralTables
+    from xlab_fftbarotropic.ops.spectral import SpectralTables
 
     cfg = ModelConfig(nx=128, ny=128, dt=10.0)
     t = SpectralTables.from_config(cfg)
@@ -169,7 +170,7 @@ def test_sharded_tracer_matches_single_device():
     """Slab-decomposed joint stepper on the 8-virtual-device mesh is a
     differential twin of the single-device model (both components)."""
     import jax
-    from xlab_fftbarotropic_tpu.parallel import (ShardedTracerModel,
+    from xlab_fftbarotropic.parallel import (ShardedTracerModel,
                                                  make_mesh)
 
     cfg = _cfg(dt=10.0)
@@ -198,7 +199,7 @@ def test_sharded_tracer_matches_single_device():
 
 def test_sharded_tracer_xpencil_matches_single_device():
     import jax
-    from xlab_fftbarotropic_tpu.parallel import (ShardedTracerModel,
+    from xlab_fftbarotropic.parallel import (ShardedTracerModel,
                                                  make_mesh)
 
     cfg = _cfg(dt=10.0)
@@ -215,6 +216,28 @@ def test_sharded_tracer_xpencil_matches_single_device():
         scale = max(float(jnp.abs(want).max()), 1e-30)
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("decomp", ["slab", "xpencil", "pencil"])
+def test_p4_tracer_segment_matches_single(p4_mesh, decomp):
+    """Four devices, every decomposition: the sharded tracer segment
+    (both prognostic fields) equals the single-device one."""
+    from xlab_fftbarotropic.parallel import ShardedTracerModel
+
+    cfg = _cfg(dt=10.0)
+    vort0 = makefields.gaussian(cfg, zeta0=2e-3)
+    q0 = tracer_ic(cfg, "gaussian")
+    single = TracerModel.build(cfg, kappa=50.0)
+    ref = single.segment(single.init_state(vort0, q0),
+                         single.zero_source(), 4)
+    m = ShardedTracerModel.build(cfg, p4_mesh(decomp), decomp=decomp,
+                                 kappa=50.0)
+    out = m.unshard_state(m.segment(m.init_state(vort0, q0),
+                                    m.zero_source(), 4))
+    for name, got, want in zip(("zeta", "q"), out, ref):
+        want = np.asarray(want)
+        rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+        assert rel < 1e-5, (name, rel)
 
 
 def test_runner_sharded_tracer(tmp_path):

@@ -5,7 +5,7 @@ the reference's find_min -> pres_timeseries.txt workflow
 import numpy as np
 import pytest
 
-from xlab_fftbarotropic_tpu.diagnostics.tracks import (
+from xlab_fftbarotropic.diagnostics.tracks import (
     Track, build_tracks, cluster_minima, format_tracks, periodic_delta)
 
 
@@ -90,8 +90,8 @@ def test_format_tracks_contract():
 
 
 def test_cli_tracks_end_to_end(tmp_path, capsys, monkeypatch):
-    from xlab_fftbarotropic_tpu.cli import find_min as cli
-    from xlab_fftbarotropic_tpu.io.fieldio import write_field
+    from xlab_fftbarotropic.cli import find_min as cli
+    from xlab_fftbarotropic.io.fieldio import write_field
 
     nx = ny = 32
     files = []
@@ -125,8 +125,8 @@ def test_cli_tracks_mixed_step_names_error(tmp_path, capsys, monkeypatch):
     ADVICE). All-unparsable input still works (stdin order = time axis)."""
     import io
 
-    from xlab_fftbarotropic_tpu.cli import find_min as cli
-    from xlab_fftbarotropic_tpu.io.fieldio import write_field
+    from xlab_fftbarotropic.cli import find_min as cli
+    from xlab_fftbarotropic.io.fieldio import write_field
 
     nx = ny = 16
     f = np.zeros((nx, ny), np.float32)
@@ -164,7 +164,7 @@ def test_hungarian_matches_bruteforce():
     random small cost matrices."""
     import itertools
 
-    from xlab_fftbarotropic_tpu.diagnostics.tracks import _hungarian
+    from xlab_fftbarotropic.diagnostics.tracks import _hungarian
 
     rng = np.random.default_rng(7)
     for n in (1, 2, 3, 4, 5, 6):
@@ -184,7 +184,7 @@ def test_crowded_matching_keeps_both_tracks():
     (6->5) first and strands (0->8) out of range, killing one track and
     birthing a spurious one; the optimal assignment keeps both alive
     via (0->5, 6->8)."""
-    from xlab_fftbarotropic_tpu.diagnostics.tracks import build_tracks
+    from xlab_fftbarotropic.diagnostics.tracks import build_tracks
 
     nx = ny = 64
     records = [

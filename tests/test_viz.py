@@ -5,10 +5,10 @@ import pytest
 
 pytest.importorskip("matplotlib")
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.ic import makefields
-from xlab_fftbarotropic_tpu import runner
-from xlab_fftbarotropic_tpu.viz.plots import (
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.ic import makefields
+from xlab_fftbarotropic import runner
+from xlab_fftbarotropic.viz.plots import (
     cmap_vorticity, draw_run, load_step)
 
 
@@ -32,7 +32,7 @@ def test_load_step_transposes(run_outputs):
     f = load_step(cfg, cfg.output_dir, 0)
     assert f["vort"].shape == (cfg.ny, cfg.nx)
     # the raw file is x-major; transpose means [j, i] indexing
-    from xlab_fftbarotropic_tpu.io.fieldio import read_field
+    from xlab_fftbarotropic.io.fieldio import read_field
     raw = read_field(f"{cfg.output_dir}/vort_step_0.bin", cfg.grid_shape)
     np.testing.assert_array_equal(f["vort"], raw.T)
 
@@ -48,7 +48,7 @@ def test_draw_run_produces_pngs(run_outputs, tmp_path, wind):
 
 
 def test_draw_cli(run_outputs, tmp_path):
-    from xlab_fftbarotropic_tpu.cli import draw
+    from xlab_fftbarotropic.cli import draw
     cfg, d = run_outputs
     draw.main(["-O", cfg.output_dir, "--fig-dir", str(tmp_path / "figs"),
                "--nx", "32", "--ny", "32", "--total-steps", "20",

@@ -1,7 +1,6 @@
 """x-pencil spectral layout (parallel/xpencil.py) on the 8-virtual-device
-CPU mesh: one all_to_all per transform instead of the slab's two, for all
-three fft impls (xla collectives, pallas DMA transposes, and the
-gather/scatter halves of the overlapped transpose+DFT kernel).
+CPU mesh and its 2- and 4-device submeshes: one all_to_all per transform
+instead of the slab's two.
 
 Strategy per SURVEY.md §4: jnp.fft and the single-device model are the
 oracles; the slab path (itself differentially verified) cross-checks."""
@@ -12,12 +11,11 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.ic import makefields
-from xlab_fftbarotropic_tpu.models.barotropic import BarotropicModel
-from xlab_fftbarotropic_tpu.parallel import model as pmodel
-from xlab_fftbarotropic_tpu.parallel import xpencil
-from xlab_fftbarotropic_tpu.parallel.model import (
+from xlab_fftbarotropic.config import ModelConfig
+from xlab_fftbarotropic.ic import makefields
+from xlab_fftbarotropic.models.barotropic import BarotropicModel
+from xlab_fftbarotropic.parallel import xpencil
+from xlab_fftbarotropic.parallel.model import (
     ShardedBarotropicModel, ShardedShallowWaterModel, make_mesh)
 
 try:
@@ -28,7 +26,9 @@ except AttributeError:
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 2, reason="needs multiple (virtual) devices")
 
-IMPLS = ["xla", "pallas", "overlap"]
+# mesh sizes: the full 8-device mesh and the 2- and 4-device submeshes
+# (4 is the layout of a four-card host)
+N_DEV = [2, 4, 8]
 
 
 @pytest.fixture(scope="module")
@@ -36,28 +36,20 @@ def mesh():
     return make_mesh(jax.devices())
 
 
-def _pair(mesh, impl, hny, check_vma=None):
-    n = mesh.shape["x"]
-    fwd_l, inv_l = xpencil.make_fft_pair("x", n, hny, fft_impl=impl,
-                                         interpret=True)
-    vma = impl == "xla" if check_vma is None else check_vma
-    fwd = jax.jit(shard_map(fwd_l, mesh=mesh, in_specs=P("x", None),
-                            out_specs=P(None, "x"), check_vma=vma))
-
-    def inv_fn(s, gs):
-        return inv_l(s, gs)
-
-    return fwd, fwd_l, inv_fn, vma
+def _submesh(n_dev):
+    return make_mesh(jax.devices()[:n_dev])
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-def test_xpencil_forward_matches_rfft2(mesh, rng, impl):
-    n = mesh.shape["x"]
+@pytest.mark.parametrize("n_dev", N_DEV)
+def test_xpencil_forward_matches_rfft2(rng, n_dev):
+    mesh = _submesh(n_dev)
     f = rng.randn(64, 64).astype(np.float32)
     hny = 33
-    fwd, *_ = _pair(mesh, impl, hny)
+    fwd_l, _ = xpencil.make_fft_pair("x", n_dev, hny)
+    fwd = jax.jit(shard_map(fwd_l, mesh=mesh, in_specs=P("x", None),
+                            out_specs=P(None, "x")))
     got = np.asarray(fwd(jnp.asarray(f)))
-    hpad = xpencil.hpad_for(hny, n, impl, interpret=True)
+    hpad = -(-hny // n_dev) * n_dev
     assert got.shape == (64, hpad)
     want = np.fft.rfft2(f).astype(np.complex64)
     np.testing.assert_allclose(got[:, :hny], want, rtol=2e-5, atol=1e-3)
@@ -65,50 +57,44 @@ def test_xpencil_forward_matches_rfft2(mesh, rng, impl):
     np.testing.assert_array_equal(got[:, hny:], 0.0)
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-def test_xpencil_roundtrip(mesh, rng, impl):
-    n = mesh.shape["x"]
+@pytest.mark.parametrize("n_dev", N_DEV)
+def test_xpencil_roundtrip(rng, n_dev):
+    mesh = _submesh(n_dev)
     f = rng.randn(64, 64).astype(np.float32)
-    hny = 33
-    fwd_l, inv_l = xpencil.make_fft_pair("x", n, hny, fft_impl=impl,
-                                         interpret=True)
-    vma = impl == "xla"
+    fwd_l, inv_l = xpencil.make_fft_pair("x", n_dev, 33)
     run = jax.jit(shard_map(
         lambda a: inv_l(fwd_l(a), (64, 64)), mesh=mesh,
-        in_specs=P("x", None), out_specs=P("x", None), check_vma=vma))
+        in_specs=P("x", None), out_specs=P("x", None)))
     back = np.asarray(run(jnp.asarray(f)))
     np.testing.assert_allclose(back, f, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-def test_xpencil_inverse_matches_irfft2(mesh, rng, impl):
+@pytest.mark.parametrize("n_dev", N_DEV)
+def test_xpencil_inverse_matches_irfft2(rng, n_dev):
     """Inverse from a padded x-pencil (pad columns zero) == irfft2."""
-    n = mesh.shape["x"]
+    mesh = _submesh(n_dev)
     hny = 33
-    hpad = xpencil.hpad_for(hny, n, impl, interpret=True)
+    hpad = -(-hny // n_dev) * n_dev
     spec = (rng.randn(64, hny)
             + 1j * rng.randn(64, hny)).astype(np.complex64)
     padded = np.pad(spec, ((0, 0), (0, hpad - hny)))
-    fwd_l, inv_l = xpencil.make_fft_pair("x", n, hny, fft_impl=impl,
-                                         interpret=True)
-    vma = impl == "xla"
+    _, inv_l = xpencil.make_fft_pair("x", n_dev, hny)
     inv = jax.jit(shard_map(
         lambda s: inv_l(s, (64, 64)), mesh=mesh,
-        in_specs=P(None, "x"), out_specs=P("x", None), check_vma=vma))
+        in_specs=P(None, "x"), out_specs=P("x", None)))
     got = np.asarray(inv(jnp.asarray(padded)))
     want = np.fft.irfft2(spec, s=(64, 64)).astype(np.float32)
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-def test_xpencil_barotropic_segment_matches_single(mesh, impl):
+@pytest.mark.parametrize("n_dev", N_DEV)
+def test_xpencil_barotropic_segment_matches_single(n_dev):
+    mesh = _submesh(n_dev)
     cfg = ModelConfig(nx=64, ny=64, dt=3.0, nu=6.5)
     vort0 = makefields.gaussian(cfg)
     single = BarotropicModel.build(cfg)
-    multi = ShardedBarotropicModel.build(cfg, mesh, fft_impl=impl,
-                                         decomp="xpencil")
-    assert multi.hpad == xpencil.hpad_for(33, mesh.shape["x"], impl,
-                                          interpret=True)
+    multi = ShardedBarotropicModel.build(cfg, mesh, decomp="xpencil")
+    assert multi.hpad == -(-33 // n_dev) * n_dev
 
     z1 = single.init_state(vort0)
     zN = multi.init_state(vort0)
@@ -135,15 +121,13 @@ def test_xpencil_matches_slab_trajectory(mesh):
         xp.unshard_spectral(z_x), np.asarray(z_s), rtol=5e-5, atol=5e-4)
 
 
-@pytest.mark.parametrize("impl", ["xla", "overlap"])
-def test_xpencil_sw_segment_matches_single(mesh, impl):
-    from xlab_fftbarotropic_tpu.models.shallow_water import (
+def test_xpencil_sw_segment_matches_single(mesh):
+    from xlab_fftbarotropic.models.shallow_water import (
         ShallowWaterModel)
     cfg = ModelConfig(nx=64, ny=64, dt=1.0)
     vort0 = makefields.gaussian(cfg, zeta0=1e-5)
     single = ShallowWaterModel.build(cfg)
-    multi = ShardedShallowWaterModel.build(cfg, mesh, fft_impl=impl,
-                                           decomp="xpencil")
+    multi = ShardedShallowWaterModel.build(cfg, mesh, decomp="xpencil")
     s1 = single.geostrophic_init(vort0)
     sN = multi.geostrophic_init(vort0)
 
@@ -176,86 +160,11 @@ def test_xpencil_diags_match_single(mesh):
                                    rtol=2e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("n_chunks", [1, 2, 4])
-def test_gather_kernel_matches_global_fft(mesh, rng, n_chunks):
-    """xstage_gather == fft(transpose_to_columns(.), axis=0): the
-    forward half of the overlap kernel, output column-sharded."""
-    from xlab_fftbarotropic_tpu.parallel import pallas_overlap as po
-    n = mesh.shape["x"]
-    s = (rng.randn(64, 33) + 1j * rng.randn(64, 33)).astype(np.complex64)
-    ours = jax.jit(shard_map(
-        lambda a: po.xstage_gather(a, "x", n, forward=True,
-                                   n_chunks=n_chunks, interpret=True),
-        mesh=mesh, in_specs=P("x", None), out_specs=P(None, "x"),
-        check_vma=False))
-    got = np.asarray(ours(jnp.asarray(s)))
-    hpad = got.shape[1]
-    ref = np.fft.fft(np.pad(s, ((0, 0), (0, hpad - 33))),
-                     axis=0).astype(np.complex64)
-    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-4)
-
-
-@pytest.mark.parametrize("n_chunks", [1, 2, 4])
-def test_scatter_kernel_matches_global_ifft(mesh, rng, n_chunks):
-    """xstage_scatter == transpose_to_rows(ifft(.)): the inverse half,
-    input column-sharded, pad stripped on return."""
-    from xlab_fftbarotropic_tpu.parallel import pallas_overlap as po
-    n = mesh.shape["x"]
-    hny = 33
-    hpad = -(-hny // (n * n_chunks)) * (n * n_chunks)
-    s = (rng.randn(64, hny)
-         + 1j * rng.randn(64, hny)).astype(np.complex64)
-    padded = np.pad(s, ((0, 0), (0, hpad - hny)))
-    ours = jax.jit(shard_map(
-        lambda a: po.xstage_scatter(a, "x", n, hny=hny, forward=False,
-                                    n_chunks=n_chunks, interpret=True,
-                                    scale=1.0 / 64),
-        mesh=mesh, in_specs=P(None, "x"), out_specs=P("x", None),
-        check_vma=False))
-    got = np.asarray(ours(jnp.asarray(padded)))
-    ref = np.fft.ifft(s, axis=0).astype(np.complex64)
-    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-4)
-
-
-def test_gather_scatter_hardware_chunk_geometry(mesh, rng):
-    """The EXACT hardware chunk plan (fixed 128-lane slots, half axis
-    padded to P*128) through both halves in interpret mode at P=8:
-    hny=1025 -> hpad=2048, 2 chunks per shard — pod geometry."""
-    from xlab_fftbarotropic_tpu.parallel import pallas_overlap as po
-    n = mesh.shape["x"]
-    hny = 1025
-    s = (rng.randn(64, hny)
-         + 1j * rng.randn(64, hny)).astype(np.complex64)
-    run = jax.jit(shard_map(
-        lambda a: po.xstage_scatter(
-            po.xstage_gather(a, "x", n, forward=True, interpret=True,
-                             lane_plan=True),
-            "x", n, hny=hny, forward=False, interpret=True,
-            lane_plan=True, scale=1.0 / 64),
-        mesh=mesh, in_specs=P("x", None), out_specs=P("x", None),
-        check_vma=False))
-    got = np.asarray(run(jnp.asarray(s)))
-    np.testing.assert_allclose(got, s, rtol=3e-5, atol=3e-4)
-
-
-def test_scatter_width_mismatch_raises(mesh):
-    from xlab_fftbarotropic_tpu.parallel import pallas_overlap as po
-    n = mesh.shape["x"]
-    bad = jnp.zeros((64, 16), jnp.complex64)  # 16 != plan hpad (64)
-    with pytest.raises(ValueError, match="inconsistent"):
-        jax.jit(shard_map(
-            lambda a: po.xstage_scatter(a, "x", n, hny=33,
-                                        interpret=True),
-            mesh=mesh, in_specs=P(None, "x"), out_specs=P("x", None),
-            check_vma=False))(bad)
-
-
 def test_xpencil_2d_mesh_multihost_layout():
     """Flattened ('host','chip') x-pencil with XLA collectives matches
     the single-device model — the multi-host halved-traffic layout on a
-    virtual 2x4 mesh (tuple-axis all_to_all decomposes hierarchically,
-    intra-host stage on ICI)."""
-    from xlab_fftbarotropic_tpu.parallel import make_mesh2d
+    virtual 2x4 mesh (tuple-axis all_to_all decomposes hierarchically)."""
+    from xlab_fftbarotropic.parallel import make_mesh2d
     cfg = ModelConfig(nx=64, ny=64)
     vort0 = makefields.gaussian(cfg)
     mesh2 = make_mesh2d((2, 4))
@@ -274,9 +183,6 @@ def test_xpencil_2d_mesh_multihost_layout():
 
 
 def test_xpencil_validation_errors(mesh):
-    with pytest.raises(ValueError, match="single mesh axis"):
-        pmodel._xpencil_setup(ModelConfig(nx=64, ny=64), mesh,
-                              ("a", "b"), "overlap")
     with pytest.raises(ValueError, match="not divisible"):
         ShardedBarotropicModel.build(ModelConfig(nx=60, ny=64), mesh,
                                      decomp="xpencil")
